@@ -6,20 +6,33 @@
 // kernel _apply_bytes_w8_kernel).  It applies an [out*8, k*8] bit-matrix to
 // [k, B] data bytes in one pass: no bit-plane ever reaches device memory.
 //   Bit-row j*8+x of a column is bit x of chunk j's byte, so a column's k bytes,
-//   packed little-endian into 64-bit words, ARE its bit vector: the gather is
-//   byte moves, no bit transpose.  Output bit x of parity chunk o is the parity
-//   of (mask[o*8+x] & vector); eight of them pack into one parity byte.
+//   packed little-endian, ARE its bit vector: the gather is byte moves, no bit
+//   transpose.  Output bit x of parity chunk o is the parity of
+//   (mask[o*8+x] & vector); eight of them pack into one parity byte.
 //   Bound: bytes.  It must read k*B and write out*B bytes ((k+m)*B, 23 MB at
-//   k=8 m=3 and B = 2 MiB, 6.9 us at the H100 SXM's 3.35 TB/s).  Each thread
-//   takes four adjacent columns with one 32-bit load per data row and one
-//   32-bit store per parity row, so a warp moves whole 128-byte lines and the
-//   traffic is that minimum.  What bounds it in practice is instruction issue:
-//   per column it issues out*8 popcounts (24 at m=3), at 16 per clock per SM,
-//   plus a few logic operations each.  On an H100 80GB HBM3 at 700 W it ran at
-//   about 29% of the byte bound at B = 2 MiB (PERF.md, chip_smoke.py); fewer
-//   instructions per output bit is the way to the bound, not fewer bytes.
-//   Ragged B (not a multiple of 4, or a misaligned base) takes a byte-load
-//   variant; there is no padding to a tile multiple.
+//   k=8 m=3 and B = 2 MiB, 6.9 us at the H100 SXM's 3.35 TB/s).
+//   Two routes, chosen by k1_route from the shape and the alignment alone:
+//   * mma (k <= 16, out <= 4: every reed_sol_van k=8 m=3 encode, decode and
+//     recovery).  The popcounts run on the tensor cores, as binary
+//     m16n8k128 AND-popc products: A is sixteen columns' bit vectors (a 4x4
+//     byte transpose of four data rows in registers), B is eight bit-matrix
+//     rows, held in registers for the whole launch, and each count's low bit
+//     is its parity.  Product i gives the thread of quad lane t bits 2i and
+//     2i+1 of parity byte t for its two columns, so four products leave whole
+//     parity bytes in the thread that stores them, with no shuffle.  A warp
+//     walks 128-column tiles with 16-byte loads and 16-byte stores, the next
+//     tile's loads issued before the current tile's products.  What is left
+//     on the integer pipe is the transpose and packing the counts' low bits:
+//     about 26 operations per thread per 16 columns, against PR 1's out*8
+//     popcounts per column.
+//   * popc (any other shape: k=12 m=4, k=40, ...), the first port's kernel:
+//     each thread takes four adjacent columns with one 32-bit load per data row
+//     and one 32-bit store per parity row; per column it issues out*8
+//     popcounts, at 16 per clock per SM, plus a few logic operations each, so
+//     instruction issue bounds it (about 29% of the byte bound at B = 2 MiB on
+//     an H100 80GB HBM3 at 700 W, PERF.md).
+//   Each route has a byte-load variant for ragged B or a misaligned base;
+//   there is no padding to a tile multiple.
 //
 // gf2_matmul replaces pallas_gf2_matmul (same file, kernel _gf2_matmul_kernel):
 // (M[R, C] @ bits[C, B]) & 1 on int8 bit-planes, the lane of the w=16 and w=4
@@ -36,9 +49,10 @@
 //   flight, so narrow B is bound by memory latency instead.  An int8
 //   tensor-core (mma/wgmma) design is later work.
 //
-// Both: the bit-matrix is an operand (encode, decode and recovery share one
-// kernel), its row masks are built per block in shared memory, the grid
-// strides over column groups, and each launch checks its own arguments.
+// All: the bit-matrix is an operand (encode, decode and recovery share one
+// kernel), the grid strides over column groups, and each launch checks its own
+// arguments.  The popc route and gf2_matmul build row masks per block in
+// shared memory.
 
 #include <cuda_runtime.h>
 
@@ -49,7 +63,175 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;  // 8 x 256 threads fills an SM's 2048 slots
 
-// ---------------------------------------------------------------- K1 -------
+// ------------------------------------------------------- K1, mma route -----
+
+constexpr int kMmaMaxK = 16;         // K = 128 bits = 16 data chunks
+constexpr int kMmaMaxOut = 4;        // four quad lanes, one parity byte each
+constexpr int kMmaTileCols = 128;    // a warp's tile: 8 lanes x 16 columns
+constexpr int kMmaBlocksPerSm = 4;   // 4 x 256 threads at <= 64 registers
+
+// D[16x8] = popc(A[16x128] & B[128x8]) over GF(2) bits, as s32 counts.  Thread
+// (g = lane/4, t = lane%4) holds bits 32t.. of A rows g (a0) and g+8 (a1) and
+// of B column g (b); it receives D[g][2t], D[g][2t+1], D[g+8][2t],
+// D[g+8][2t+1] (CUTLASS SM80_16x8x128_S32U1U1S32_TN_ANDPOPC).  Only the
+// pairing of A and B bits matters to a popcount, not their order.
+__device__ __forceinline__ void mma_and_popc(uint32_t (&d)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b), "r"(0));
+}
+
+// Slice t of one bit-matrix row in the bit order of a column word: bit 8r+b is
+// row[(4t+r)*8 + b] & 1 (zero past chunk k).  With VEC each chunk's eight int8
+// are one 64-bit load, and a multiply gathers their low bits into a byte.
+template <bool VEC>
+__device__ __forceinline__ uint32_t mma_mask_word(
+    const int8_t* __restrict__ row, int k, int t) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = 4 * t + r;
+    if (j < k) {
+      uint32_t byte = 0;
+      if (VEC) {
+        const unsigned long long v =
+            __ldg(reinterpret_cast<const unsigned long long*>(row + j * 8));
+        byte = static_cast<uint32_t>(
+            ((v & 0x0101010101010101ull) * 0x0102040810204080ull) >> 56);
+      } else {
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          byte |= static_cast<uint32_t>(row[j * 8 + b] & 1) << b;
+      }
+      w |= byte << (8 * r);
+    }
+  }
+  return w;
+}
+
+// Data rows 4t..4t+3, columns col0..col0+15 (zero past row k or column B).
+template <bool VEC>
+__device__ __forceinline__ void mma_load(uint4 (&v)[4],
+                                         const uint8_t* __restrict__ data,
+                                         int k, long long B, int t,
+                                         long long col0) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = 4 * t + r;
+    v[r] = make_uint4(0, 0, 0, 0);
+    if (j < k && col0 < B) {
+      const uint8_t* p = data + (long long)j * B + col0;
+      if (VEC) {
+        v[r] = __ldg(reinterpret_cast<const uint4*>(p));
+      } else {
+        uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          if (col0 + c < B)
+            w[c >> 2] |= static_cast<uint32_t>(__ldg(p + c)) << (8 * (c & 3));
+        v[r] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Parity byte t of two columns from the four products of one 16-column tile:
+// d[i] = the counts of product i, bits 2i (d[i][0], d[i][2]) and 2i+1
+// (d[i][1], d[i][3]) of the first and second column.  Counts are at most 128,
+// so four fit a word a byte each, and only their low bits are kept.  Returns
+// the first column's byte in bits 0-7 and the second's in bits 16-23.
+__device__ __forceinline__ uint32_t mma_parity_bytes(const uint32_t (&d)[4][4]) {
+  constexpr uint32_t kLow = 0x01010101u;
+  uint32_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t w = d[i][0] | (d[i][1] << 8) | (d[i][2] << 16) | (d[i][3] << 24);
+    v |= (w & kLow) << (2 * i);  // byte 0/1/2/3: bit 2i of A even/odd, B even/odd
+  }
+  return (v & 0x00550055u) | ((v >> 7) & 0x00AA00AAu);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, kMmaBlocksPerSm)
+apply_bytes_w8_mma_kernel(const int8_t* __restrict__ mbits,
+                          const uint8_t* __restrict__ data,
+                          uint8_t* __restrict__ out, int k, int out_rows,
+                          long long B) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long tiles = (B + kMmaTileCols - 1) / kMmaTileCols;
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+  long long tile = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane_col = 16 * g;  // this lane's 16 columns of a tile
+
+  uint4 cur[4];
+  mma_load<VEC>(cur, data, k, B, t, tile * kMmaTileCols + lane_col);
+
+  // B of product i: column g is bit-matrix row (g/2)*8 + 2i + g%2, so the
+  // counts D[.][2t + s] are bit 2i+s of parity byte t.
+  uint32_t bfrag[4];
+  const int o = g >> 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    bfrag[i] = o < out_rows
+                   ? mma_mask_word<VEC>(
+                         mbits + (long long)(o * 8 + 2 * i + (g & 1)) * k * 8,
+                         k, t)
+                   : 0u;
+
+  for (; tile < tiles; tile += warps) {
+    uint4 nxt[4];
+    mma_load<VEC>(nxt, data, k, B, t, (tile + warps) * kMmaTileCols + lane_col);
+
+    uint32_t res[4];  // parity byte t of this lane's 16 columns
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      // 4x4 byte transpose: col[c] byte r = chunk 4t+r of column 4w+c
+      const uint32_t x0 = word_of(cur[0], w), x1 = word_of(cur[1], w);
+      const uint32_t x2 = word_of(cur[2], w), x3 = word_of(cur[3], w);
+      const uint32_t t0 = __byte_perm(x0, x1, 0x5140);
+      const uint32_t t1 = __byte_perm(x0, x1, 0x7362);
+      const uint32_t t2 = __byte_perm(x2, x3, 0x5140);
+      const uint32_t t3 = __byte_perm(x2, x3, 0x7362);
+      const uint32_t col[4] = {
+          __byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+          __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+      uint32_t half[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // A rows g and g+8: columns 4w+2h and 4w+2h+1 of this lane
+        uint32_t d[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mma_and_popc(d[i], col[2 * h], col[2 * h + 1], bfrag[i]);
+        half[h] = mma_parity_bytes(d);
+      }
+      res[w] = __byte_perm(half[0], half[1], 0x6420);
+    }
+
+    const long long col0 = tile * kMmaTileCols + lane_col;
+    if (t < out_rows && col0 < B) {
+      uint8_t* p = out + (long long)t * B + col0;
+      if (VEC) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(res[0], res[1], res[2], res[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          if (col0 + c < B) p[c] = static_cast<uint8_t>(res[c >> 2] >> (8 * (c & 3)));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) cur[r] = nxt[r];
+  }
+}
+
+// ------------------------------------------------------ K1, popc route -----
 
 template <int MAXW, int COLS, bool VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -228,19 +410,34 @@ gf2_matmul_kernel(const int8_t* __restrict__ mbits,
 
 // ------------------------------------------------------------ launch -------
 
-int grid_for(long long columns, int cols_per_thread) {
-  int dev = 0, sms = 0;
+// The current device's SM count, read once per device.
+int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (sms < 1) sms = 1;
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cached[dev] < 1) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = sms < 1 ? 1 : sms;
+  }
+  return cached[dev];
+}
+
+int grid_for(long long columns, int cols_per_thread,
+             int blocks_per_sm = kBlocksPerSm) {
   const long long groups = (columns + cols_per_thread - 1) / cols_per_thread;
   const long long blocks = (groups + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * kBlocksPerSm;
+  const long long cap = (long long)sm_count() * blocks_per_sm;
   return static_cast<int>(blocks < cap ? blocks : cap);
 }
 
 bool aligned4(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 // Launch `kernel<MAXW, COLS, VEC>` for the word count W of the column vector:
@@ -282,20 +479,68 @@ struct Gf2Matmul {
   }
 };
 
-}  // namespace
+// K1's routes (ops/cuda_gf2.py K1_ROUTES names them): the mma kernel with 16-
+// or 1-byte accesses, the popc kernel with 4- or 1-byte accesses.
+enum K1Route { kMmaV16 = 0, kMmaB1 = 1, kPopcV4 = 2, kPopcB1 = 3 };
 
-extern "C" int ctt_apply_bytes_w8(const int8_t* mbits, const uint8_t* data,
-                                  uint8_t* out, int k, int out_rows,
-                                  long long B, void* stream) {
+int popc_route(const uint8_t* data, const uint8_t* out, int k, long long B) {
+  return k <= 32 && B % 4 == 0 && aligned4(data) && aligned4(out) ? kPopcV4
+                                                                  : kPopcB1;
+}
+
+int k1_route(const int8_t* mbits, const uint8_t* data, const uint8_t* out,
+             int k, int out_rows, long long B) {
+  if (k <= kMmaMaxK && out_rows <= kMmaMaxOut)
+    return B % 16 == 0 && aligned16(mbits) && aligned16(data) && aligned16(out)
+               ? kMmaV16 : kMmaB1;
+  return popc_route(data, out, k, B);
+}
+
+int launch_w8(int route, const int8_t* mbits, const uint8_t* data, uint8_t* out,
+              int k, int out_rows, long long B, cudaStream_t stream) {
   const int W = (k + 7) / 8;
   const size_t smem = (size_t)out_rows * 8 * W * sizeof(uint64_t);
   if (k < 1 || out_rows < 1 || B < 1 || W > CTT_MAX_MASK_WORDS ||
       smem > CTT_MAX_MASK_BYTES)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = B % 4 == 0 && aligned4(data) && aligned4(out);
-  return dispatch<ApplyBytesW8>(W, vec, B, smem,
-                                static_cast<cudaStream_t>(stream), mbits, data,
-                                out, k, out_rows, B);
+  if (route == kMmaV16 || route == kMmaB1) {
+    if (k > kMmaMaxK || out_rows > kMmaMaxOut)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int grid = grid_for(B, kMmaTileCols / 32, kMmaBlocksPerSm);
+    if (route == kMmaV16)
+      apply_bytes_w8_mma_kernel<true><<<grid, kThreads, 0, stream>>>(
+          mbits, data, out, k, out_rows, B);
+    else
+      apply_bytes_w8_mma_kernel<false><<<grid, kThreads, 0, stream>>>(
+          mbits, data, out, k, out_rows, B);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return dispatch<ApplyBytesW8>(W, route == kPopcV4, B, smem, stream, mbits,
+                                data, out, k, out_rows, B);
+}
+
+}  // namespace
+
+extern "C" int ctt_apply_bytes_w8_route(const int8_t* mbits,
+                                        const uint8_t* data,
+                                        const uint8_t* out, int k,
+                                        int out_rows, long long B) {
+  return k1_route(mbits, data, out, k, out_rows, B);
+}
+
+extern "C" int ctt_apply_bytes_w8(const int8_t* mbits, const uint8_t* data,
+                                  uint8_t* out, int k, int out_rows,
+                                  long long B, void* stream) {
+  return launch_w8(k1_route(mbits, data, out, k, out_rows, B), mbits, data,
+                   out, k, out_rows, B, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ctt_apply_bytes_w8_popc(const int8_t* mbits,
+                                       const uint8_t* data, uint8_t* out,
+                                       int k, int out_rows, long long B,
+                                       void* stream) {
+  return launch_w8(popc_route(data, out, k, B), mbits, data, out, k, out_rows, B,
+                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ctt_gf2_matmul(const int8_t* mbits, const int8_t* bits,

@@ -1,5 +1,6 @@
 // Bit-plane GF(2) kernels for Hopper: the C interface bound by ctypes
-// (ceph_tpu_torch/ops/cuda_gf2.py) and the device helpers both kernels share.
+// (ceph_tpu_torch/ops/cuda_gf2.py) and the device helpers the popcount kernels
+// share.
 //
 // Both kernels compute out_bits = (M @ bits) & 1 over GF(2).  A bit-matrix row
 // becomes a row of 64-bit masks held in shared memory, a data column becomes a
@@ -22,9 +23,23 @@ extern "C" {
 #endif
 
 // [out_rows*8, k*8] int8 bit-matrix applied to [k, B] uint8 chunks (w=8 byte
-// layout) -> [out_rows, B] uint8.  Returns a cudaError_t value, 0 on success.
+// layout) -> [out_rows, B] uint8, on the route ctt_apply_bytes_w8_route names.
+// Returns a cudaError_t value, 0 on success.
 int ctt_apply_bytes_w8(const int8_t* mbits, const uint8_t* data, uint8_t* out,
                        int k, int out_rows, long long B, void* stream);
+
+// The route ctt_apply_bytes_w8 takes for these operands: 0 mma with 16-byte
+// accesses, 1 mma with byte accesses (k <= 16 and out_rows <= 4), 2 popc with
+// 4-byte accesses, 3 popc with byte accesses (every other shape).
+int ctt_apply_bytes_w8_route(const int8_t* mbits, const uint8_t* data,
+                             const uint8_t* out, int k, int out_rows,
+                             long long B);
+
+// ctt_apply_bytes_w8 on the popc route whatever the shape, so that the two
+// routes can be compared on the same operands.
+int ctt_apply_bytes_w8_popc(const int8_t* mbits, const uint8_t* data,
+                            uint8_t* out, int k, int out_rows, long long B,
+                            void* stream);
 
 // (M[R, C] @ bits[C, B]) & 1 on int8 operands -> [R, B] int8 0/1.
 // Returns a cudaError_t value, 0 on success.

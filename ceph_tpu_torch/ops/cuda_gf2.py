@@ -5,14 +5,17 @@ CUDA C++ kernels in ``csrc/gf2.cu`` (design, bound and what the design does
 about it are noted there):
 
 * ``apply_bytes_w8``  <- ``pallas_apply_bytes_w8``: an [out*8, k*8] bit-matrix
-  applied to [k, B] uint8 chunks in the w=8 byte layout -> [out, B] uint8;
+  applied to [k, B] uint8 chunks in the w=8 byte layout -> [out, B] uint8, on
+  one of two routes chosen by shape (``apply_bytes_w8_route``): binary tensor
+  core products for k <= 16 and out <= 4, popcounts for any other shape;
 * ``gf2_matmul``      <- ``pallas_gf2_matmul``: (M[R, C] @ bits[C, B]) & 1 on
   int8 operands -> [R, B] int8.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what the
 kernel does not take (the same checks on every device).  On a CUDA tensor it
 launches the kernel on PyTorch's current stream and counts the launch in its
-``launches`` attribute; a launch error raises, nothing falls back.  On a CPU
+``launches`` attribute (``apply_bytes_w8.routes`` also counts them by route);
+a launch error raises, nothing falls back.  On a CPU
 tensor it returns the plain PyTorch version, which exists for the CPU and for
 holding the kernel to on the card.  Neither takes a column tile: any B >= 1.
 """
@@ -31,14 +34,22 @@ from ceph_tpu_torch.ops import build
 MAX_MASK_BYTES = 48 * 1024
 MAX_MASK_WORDS = 32
 
+#: K1's routes, by the code ctt_apply_bytes_w8_route returns: the tensor-core
+#: kernel with 16-byte or byte accesses, the popcount kernel with 4-byte or
+#: byte accesses
+K1_ROUTES = ("mma.v16", "mma.b1", "popc.v4", "popc.b1")
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel library, built at first use, with its C signatures bound."""
     lib = build.load("gf2")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ctt_apply_bytes_w8.argtypes = [p, p, p, i, i, ll, p]
-    lib.ctt_apply_bytes_w8.restype = i
+    for fn in (lib.ctt_apply_bytes_w8, lib.ctt_apply_bytes_w8_popc):
+        fn.argtypes = [p, p, p, i, i, ll, p]
+        fn.restype = i
+    lib.ctt_apply_bytes_w8_route.argtypes = [p, p, p, i, i, ll]
+    lib.ctt_apply_bytes_w8_route.restype = i
     lib.ctt_gf2_matmul.argtypes = [p, p, p, i, i, ll, p]
     lib.ctt_gf2_matmul.restype = i
     lib.ctt_error_string.argtypes = [i]
@@ -112,24 +123,69 @@ def gf2_matmul_plain(mbits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return _parity_product(mbits, bits).to(torch.int8)
 
 
-def apply_bytes_w8(mbits: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """[out*8, k*8] int8 bit-matrix applied to [k, B] uint8 chunks (w=8 byte
-    layout) -> [out, B] uint8."""
+def _popc_route(k: int, B: int, data_addr: int, out_addr: int) -> str:
+    vec = k <= 32 and B % 4 == 0 and data_addr % 4 == 0 and out_addr % 4 == 0
+    return "popc.v4" if vec else "popc.b1"
+
+
+def apply_bytes_w8_route(k: int, out_rows: int, B: int, mbits_addr: int,
+                         data_addr: int, out_addr: int) -> str:
+    """The route ctt_apply_bytes_w8 takes for k data rows, out_rows parity
+    rows, B columns and these operand addresses (csrc/gf2.cu k1_route): the
+    tensor-core kernel for k <= 16 and out_rows <= 4, with 16-byte accesses
+    where B and the three addresses are multiples of 16; else the popcount
+    kernel, with 4-byte accesses where k <= 32 and B and the data and output
+    addresses are multiples of 4."""
+    if k <= 16 and out_rows <= 4:
+        vec = all(n % 16 == 0 for n in (B, mbits_addr, data_addr, out_addr))
+        return "mma.v16" if vec else "mma.b1"
+    return _popc_route(k, B, data_addr, out_addr)
+
+
+def _check_w8(mbits: torch.Tensor, data: torch.Tensor) -> None:
     _check_operands("apply_bytes_w8", mbits, data, torch.uint8, 8)
     _check(mbits.shape[0] % 8 == 0, "apply_bytes_w8: bit-matrix rows "
            f"{mbits.shape[0]} are not a multiple of 8")
-    if data.device.type == "cpu":
-        return apply_bytes_w8_plain(mbits, data)
+
+
+def _launch_w8(mbits: torch.Tensor, data: torch.Tensor,
+               popc: bool) -> torch.Tensor:
     k, B = data.shape
     out_rows = mbits.shape[0] // 8
     out = torch.empty((out_rows, B), dtype=torch.uint8, device=data.device)
+    if popc:
+        entry = _lib().ctt_apply_bytes_w8_popc
+        route = _popc_route(k, B, data.data_ptr(), out.data_ptr())
+    else:
+        entry = _lib().ctt_apply_bytes_w8
+        route = apply_bytes_w8_route(k, out_rows, B, mbits.data_ptr(),
+                                     data.data_ptr(), out.data_ptr())
     with torch.cuda.device(data.device):
-        rc = _lib().ctt_apply_bytes_w8(mbits.data_ptr(), data.data_ptr(),
-                                       out.data_ptr(), k, out_rows, B,
-                                       _stream(data.device))
+        rc = entry(mbits.data_ptr(), data.data_ptr(), out.data_ptr(), k,
+                   out_rows, B, _stream(data.device))
     _raise_on(rc, "apply_bytes_w8")
     apply_bytes_w8.launches += 1
+    apply_bytes_w8.routes[route] += 1
     return out
+
+
+def apply_bytes_w8(mbits: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """[out*8, k*8] int8 bit-matrix applied to [k, B] uint8 chunks (w=8 byte
+    layout) -> [out, B] uint8, on the route apply_bytes_w8_route names."""
+    _check_w8(mbits, data)
+    if data.device.type == "cpu":
+        return apply_bytes_w8_plain(mbits, data)
+    return _launch_w8(mbits, data, popc=False)
+
+
+def apply_bytes_w8_popc(mbits: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """apply_bytes_w8 on the popcount route whatever the shape: the first
+    port's kernel, kept callable so that the two routes can be held against
+    each other on the card.  On a CPU tensor, the plain version."""
+    _check_w8(mbits, data)
+    if data.device.type == "cpu":
+        return apply_bytes_w8_plain(mbits, data)
+    return _launch_w8(mbits, data, popc=True)
 
 
 def gf2_matmul(mbits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
@@ -150,4 +206,5 @@ def gf2_matmul(mbits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
 
 
 apply_bytes_w8.launches = 0
+apply_bytes_w8.routes = dict.fromkeys(K1_ROUTES, 0)
 gf2_matmul.launches = 0

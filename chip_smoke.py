@@ -192,29 +192,74 @@ def phase_kernels(device):
             rows[name] = dict(line)
         sync(device)
 
-    # K1: w=8 byte layout
-    k1, k1p = cuda_gf2.apply_bytes_w8, cuda_gf2.apply_bytes_w8_plain
+    # K1: w=8 byte layout.  Every shape runs on the route the wrapper takes
+    # for it and on the popc route (the first port's kernel); the timed shapes
+    # time the two in turns (wrapper's, popc, popc, wrapper's) and a device
+    # copy of the same number of bytes as a floor.
+    def k1(bm, data, label, report=False, turns=False):
+        k, B = data.shape
+        R, C = bm.shape
+        routes = {}
+        for fn in (cuda_gf2.apply_bytes_w8, cuda_gf2.apply_bytes_w8_popc):
+            before = dict(cuda_gf2.apply_bytes_w8.routes)
+            got = fn(bm, data)
+            route, = (r for r, n in cuda_gf2.apply_bytes_w8.routes.items()
+                      if n != before[r])
+            routes[route] = (fn, got)
+        want = cuda_gf2.apply_bytes_w8_plain(bm, data)
+        sync(device)
+        b_ms, b_by = bound(R, C, B, k * B, R // 8 * B)
+        order = list(routes)
+        if turns:
+            order = order + order[::-1]
+        times = {r: [] for r in routes}
+        for r in order:
+            times[r].append(time_ms(lambda: routes[r][0](bm, data),
+                                    TIMING_REPS))
+        plain_ms = time_ms(lambda: cuda_gf2.apply_bytes_w8_plain(bm, data),
+                           PLAIN_REPS)
+        for r, (_, got) in routes.items():
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"apply_bytes_w8 {r} {label}: {tuple(got.shape)}/{got.dtype}")
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            check(err == 0, f"apply_bytes_w8 {r} {label}: max_abs_err {err}")
+            line = {"kernel": "apply_bytes_w8", "path": r, "shape": label,
+                    "max_abs_err": err, "ms": statistics.mean(times[r]),
+                    "ms_turns": times[r], "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            print("kernel " + json.dumps(line))
+            if report and r == order[0]:
+                rows["apply_bytes_w8"] = dict(line)
+            elif report:
+                rows["apply_bytes_w8.popc"] = dict(line)
+        if turns:
+            n = (k + R // 8) * B // 2  # read n and write n: K1's bytes
+            src = torch.empty(n, dtype=torch.uint8, device=device)
+            dst = torch.empty_like(src)
+            print("floor " + json.dumps({
+                "shape": label, "copy_bytes": n,
+                "ms": time_ms(lambda: dst.copy_(src), TIMING_REPS)}))
+            del src, dst
+        sync(device)
+
+    bm_enc = _tensor(bms["rs_encode"].astype(np.int8), device)
     for mat, B, report in (("rs_encode", main_cols, True),
                            ("rs_encode", BATCH_COLS, False),
-                           ("rs_decode3", BATCH_COLS, False),
-                           ("rs_encode", 1, False), ("rs_encode", 3, False),
-                           ("rs_encode", 1000, False),
-                           ("rs_encode", 32768 + 17, False)):
+                           ("rs_decode3", BATCH_COLS, False)):
         data = _tensor(rng.integers(0, 256, (8, B), dtype=np.uint8), device)
-        bm = _tensor(bms[mat].astype(np.int8), device)
-        compare("apply_bytes_w8", k1, k1p, (bm, data), 24, 64, B, 8 * B, 3 * B,
-                f"{mat} [24,64]x[8,{B}]", report=report)
-    # misaligned base (scalar path) and wider k (2- and 5-word vectors)
+        k1(_tensor(bms[mat].astype(np.int8), device), data,
+           f"{mat} [24,64]x[8,{B}]", report=report, turns=True)
+    for B in (1, 3, 31, 1000, 32768 + 17):
+        data = _tensor(rng.integers(0, 256, (8, B), dtype=np.uint8), device)
+        k1(bm_enc, data, f"rs_encode [24,64]x[8,{B}]")
+    # misaligned base (byte accesses), other parity counts, wider k
     flat = _tensor(rng.integers(0, 256, 8 * 4096 + 1, dtype=np.uint8), device)
-    compare("apply_bytes_w8", k1, k1p,
-            (_tensor(bms["rs_encode"].astype(np.int8), device),
-             flat[1:].view(8, 4096)), 24, 64, 4096, 8 * 4096, 3 * 4096,
-            "rs_encode [24,64]x[8,4096] base+1")
-    for k, m, B in ((12, 4, 10001), (40, 2, 3001)):
+    k1(bm_enc, flat[1:].view(8, 4096), "rs_encode [24,64]x[8,4096] base+1")
+    for k, m, B in ((8, 1, 4096), (8, 2, 31), (8, 4, main_cols),
+                    (16, 4, 4112), (12, 4, 10001), (40, 2, 3001)):
         bm = _tensor(rng.integers(0, 2, (m * 8, k * 8), dtype=np.int8), device)
         data = _tensor(rng.integers(0, 256, (k, B), dtype=np.uint8), device)
-        compare("apply_bytes_w8", k1, k1p, (bm, data), m * 8, k * 8, B,
-                k * B, m * B, f"random [{m * 8},{k * 8}]x[{k},{B}]")
+        k1(bm, data, f"random [{m * 8},{k * 8}]x[{k},{B}]")
 
     # K2: int8 bit-planes
     k2, k2p = cuda_gf2.gf2_matmul, cuda_gf2.gf2_matmul_plain
@@ -293,6 +338,7 @@ def phase_main(device):
     from ceph_tpu_torch.ops import cuda_gf2
 
     cuda_gf2.apply_bytes_w8.launches = 0
+    cuda_gf2.apply_bytes_w8.routes = dict.fromkeys(cuda_gf2.K1_ROUTES, 0)
     cuda_gf2.gf2_matmul.launches = 0
 
     base = ["--plugin", "cuda", "--device", str(device), "-P",
@@ -325,10 +371,14 @@ def phase_main(device):
     sync(device)
     counts = {"apply_bytes_w8": cuda_gf2.apply_bytes_w8.launches,
               "gf2_matmul": cuda_gf2.gf2_matmul.launches}
+    routes = dict(cuda_gf2.apply_bytes_w8.routes)
     print(f"main path launches: {json.dumps(counts)}")
+    print(f"main path apply_bytes_w8 routes: {json.dumps(routes)}")
     for name, n in counts.items():
         check(n > 0, f"kernel {name} never launched on the main path")
-    return counts
+    check(routes["mma.v16"] + routes["mma.b1"] == counts["apply_bytes_w8"],
+          f"apply_bytes_w8 left the mma route on the main path: {routes}")
+    return counts, routes
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -414,7 +464,7 @@ def main() -> int:
               f"device {torch.cuda.get_device_name(0)}")
         phase_build()
         rows = phase_kernels("cuda")
-        counts = phase_main("cuda")
+        counts, routes = phase_main("cuda")
         phase_split("cuda")
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():
@@ -426,6 +476,9 @@ def main() -> int:
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "shape": row["shape"]})
+        k1_row = kernels[0]
+        k1_row.update(path=rows["apply_bytes_w8"]["path"], paths=routes,
+                      popc_ms=rows["apply_bytes_w8.popc"]["ms"])
         torch.cuda.synchronize()
     except Exception:
         traceback.print_exc()
