@@ -63,73 +63,43 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;  // 8 x 256 threads fills an SM's 2048 slots
 
-// ------------------------------------------------------- K1, mma route -----
+// ------------------------------------------------------- K1, xor route -----
 
-constexpr int kMmaMaxK = 16;         // K = 128 bits = 16 data chunks
-constexpr int kMmaMaxOut = 4;        // four quad lanes, one parity byte each
-constexpr int kMmaTileCols = 128;    // a warp's tile: 8 lanes x 16 columns
-constexpr int kMmaBlocksPerSm = 4;   // 4 x 256 threads at <= 64 registers
+constexpr int kXorMaxK = 16;
+constexpr int kXorMaxOut = 4;
+constexpr int kXorThreads = 128;
+constexpr int kXorBlocksPerSm = 6;  // 6 x 128 threads at <= 85 registers
+constexpr int kXorCols = 16;        // a thread's columns: one 16-byte load a row
 
-// D[16x8] = popc(A[16x128] & B[128x8]) over GF(2) bits, as s32 counts.  Thread
-// (g = lane/4, t = lane%4) holds bits 32t.. of A rows g (a0) and g+8 (a1) and
-// of B column g (b); it receives D[g][2t], D[g][2t+1], D[g+8][2t],
-// D[g+8][2t+1] (CUTLASS SM80_16x8x128_S32U1U1S32_TN_ANDPOPC).  Only the
-// pairing of A and B bits matters to a popcount, not their order.
-__device__ __forceinline__ void mma_and_popc(uint32_t (&d)[4], uint32_t a0,
-                                             uint32_t a1, uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(a0), "r"(a1), "r"(b), "r"(0));
+// Each byte of x becomes 0x00 or 0xff, from its top bit: prmt's sign mode
+// (bit 3 of each selector nibble), which __byte_perm does not promise.
+__device__ __forceinline__ uint32_t sign_bytes(uint32_t x) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(0), "r"(0xBA98));
+  return r;
 }
 
-// Slice t of one bit-matrix row in the bit order of a column word: bit 8r+b is
-// row[(4t+r)*8 + b] & 1 (zero past chunk k).  With VEC each chunk's eight int8
-// are one 64-bit load, and a multiply gathers their low bits into a byte.
-template <bool VEC>
-__device__ __forceinline__ uint32_t mma_mask_word(
-    const int8_t* __restrict__ row, int k, int t) {
-  uint32_t w = 0;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = 4 * t + r;
-    if (j < k) {
-      uint32_t byte = 0;
-      if (VEC) {
-        const unsigned long long v =
-            __ldg(reinterpret_cast<const unsigned long long*>(row + j * 8));
-        byte = static_cast<uint32_t>(
-            ((v & 0x0101010101010101ull) * 0x0102040810204080ull) >> 56);
-      } else {
-#pragma unroll
-        for (int b = 0; b < 8; ++b)
-          byte |= static_cast<uint32_t>(row[j * 8 + b] & 1) << b;
-      }
-      w |= byte << (8 * r);
-    }
-  }
-  return w;
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// Data rows 4t..4t+3, columns col0..col0+15 (zero past row k or column B).
+// Data rows j0..j0+7 (zero past row k), columns col0..col0+15 (zero past B).
 template <bool VEC>
-__device__ __forceinline__ void mma_load(uint4 (&v)[4],
+__device__ __forceinline__ void xor_load(uint4 (&v)[8],
                                          const uint8_t* __restrict__ data,
-                                         int k, long long B, int t,
+                                         int j0, int k, long long B,
                                          long long col0) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = 4 * t + r;
+  for (int r = 0; r < 8; ++r) {
     v[r] = make_uint4(0, 0, 0, 0);
-    if (j < k && col0 < B) {
-      const uint8_t* p = data + (long long)j * B + col0;
+    if (j0 + r < k && col0 < B) {
+      const uint8_t* p = data + (long long)(j0 + r) * B + col0;
       if (VEC) {
         v[r] = __ldg(reinterpret_cast<const uint4*>(p));
       } else {
         uint32_t w[4] = {0, 0, 0, 0};
 #pragma unroll
-        for (int c = 0; c < 16; ++c)
+        for (int c = 0; c < kXorCols; ++c)
           if (col0 + c < B)
             w[c >> 2] |= static_cast<uint32_t>(__ldg(p + c)) << (8 * (c & 3));
         v[r] = make_uint4(w[0], w[1], w[2], w[3]);
@@ -138,96 +108,602 @@ __device__ __forceinline__ void mma_load(uint4 (&v)[4],
   }
 }
 
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+// T[o][j][b]: column b of the 8x8 block (o, j) of the bit-matrix as a byte
+// (bit x = mbits[o*8+x, j*8+b] & 1), replicated into all four bytes.  One
+// thread per block (o, j) reads its eight rows with one 64-bit load each and
+// gathers the low bit of each int8: bits x of byte b of u are that column.
+template <bool VEC>
+__device__ __forceinline__ void xor_load_table(
+    const int8_t* __restrict__ mbits, int k, int out_rows,
+    uint32_t (*table)[kXorMaxK][8]) {
+  for (int i = threadIdx.x; i < out_rows * k; i += blockDim.x) {
+    const int o = i / k, j = i % k;
+    unsigned long long u = 0;
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      const int8_t* p = mbits + (long long)(o * 8 + x) * k * 8 + j * 8;
+      unsigned long long v = 0;
+      if (VEC) {
+        v = __ldg(reinterpret_cast<const unsigned long long*>(p));
+      } else {
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          v |= static_cast<unsigned long long>(static_cast<uint8_t>(p[b]))
+               << (8 * b);
+      }
+      u |= (v & 0x0101010101010101ull) << x;
+    }
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      table[o][j][b] = static_cast<uint32_t>((u >> (8 * b)) & 0xffu) * 0x01010101u;
+  }
 }
 
-// Parity byte t of two columns from the four products of one 16-column tile:
-// d[i] = the counts of product i, bits 2i (d[i][0], d[i][2]) and 2i+1
-// (d[i][1], d[i][3]) of the first and second column.  Counts are at most 128,
-// so four fit a word a byte each, and only their low bits are kept.  Returns
-// the first column's byte in bits 0-7 and the second's in bits 16-23.
-__device__ __forceinline__ uint32_t mma_parity_bytes(const uint32_t (&d)[4][4]) {
-  constexpr uint32_t kLow = 0x01010101u;
-  uint32_t v = 0;
+// Parity byte o of 4 columns, held in one word, is the XOR over chunks j and
+// bits b of (S_jb & T[o][j][b]): S_jb spreads bit b of chunk j's four bytes
+// to 0x00/0xff (a shift and a sign-mode prmt, shared by every o), and each
+// term is one LOP3.  No popcount.
+template <int OUT, bool VEC, int SMODE = 0>
+__global__ void __launch_bounds__(kXorThreads, kXorBlocksPerSm)
+apply_bytes_w8_xor_kernel(const int8_t* __restrict__ mbits,
+                          const uint8_t* __restrict__ data,
+                          uint8_t* __restrict__ out, int k, long long B) {
+  __shared__ __align__(16) uint32_t table[kXorMaxOut][kXorMaxK][8];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+
+  uint4 d[8];  // first group's loads go out before the table is built
+  xor_load<VEC>(d, data, 0, k, B, grp * kXorCols);
+  xor_load_table<VEC>(mbits, k, OUT, table);
+  __syncthreads();
+
+  for (; grp * kXorCols < B; grp += stride) {
+    const long long col0 = grp * kXorCols;
+    uint32_t acc[OUT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t w = d[i][0] | (d[i][1] << 8) | (d[i][2] << 16) | (d[i][3] << 24);
-    v |= (w & kLow) << (2 * i);  // byte 0/1/2/3: bit 2i of A even/odd, B even/odd
+    for (int o = 0; o < OUT; ++o)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) acc[o][w] = 0;
+
+    for (int j0 = 0; j0 < k; j0 += 8) {
+      if (j0 > 0) xor_load<VEC>(d, data, j0, k, B, col0);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        if (j0 + jj < k) {
+#pragma unroll
+          for (int b4 = 0; b4 < 2; ++b4) {
+            uint4 t[OUT];
+#pragma unroll
+            for (int o = 0; o < OUT; ++o)
+              t[o] = *reinterpret_cast<const uint4*>(&table[o][j0 + jj][4 * b4]);
+#pragma unroll
+            for (int bb = 0; bb < 4; ++bb) {
+              const int b = 4 * b4 + bb;
+              uint32_t s[4];
+#pragma unroll
+              for (int w = 0; w < 4; ++w)
+                s[w] = SMODE == 0
+                           ? sign_bytes(word_of(d[jj], w) << (7 - b))
+                           : ((word_of(d[jj], w) >> b) & 0x01010101u) * 0xffu;
+#pragma unroll
+              for (int o = 0; o < OUT; ++o) {
+                const uint32_t tb = word_of(t[o], bb);
+#pragma unroll
+                for (int w = 0; w < 4; ++w) acc[o][w] ^= s[w] & tb;
+              }
+            }
+          }
+        }
+      }
+    }
+
+    if (grp + stride < (B + kXorCols - 1) / kXorCols)
+      xor_load<VEC>(d, data, 0, k, B, (grp + stride) * kXorCols);
+#pragma unroll
+    for (int o = 0; o < OUT; ++o) {
+      uint8_t* p = out + (long long)o * B + col0;
+      if (VEC) {
+        *reinterpret_cast<uint4*>(p) =
+            make_uint4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kXorCols; ++c)
+          if (col0 + c < B) p[c] = static_cast<uint8_t>(acc[o][c >> 2] >> (8 * (c & 3)));
+      }
+    }
   }
-  return (v & 0x00550055u) | ((v >> 7) & 0x00AA00AAu);
+}
+
+// ---- experiment: 3-bit table lookups with prmt -----------------------------
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t lut_sel(uint32_t x, uint32_t m) {
+  const uint32_t v = x & m;
+  return v | (v >> 12);  // nibbles: columns 0, 2, 1, 3
 }
 
 template <bool VEC>
-__global__ void __launch_bounds__(kThreads, kMmaBlocksPerSm)
-apply_bytes_w8_mma_kernel(const int8_t* __restrict__ mbits,
-                          const uint8_t* __restrict__ data,
-                          uint8_t* __restrict__ out, int k, int out_rows,
-                          long long B) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const long long tiles = (B + kMmaTileCols - 1) / kMmaTileCols;
-  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
-  long long tile = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane_col = 16 * g;  // this lane's 16 columns of a tile
-
-  uint4 cur[4];
-  mma_load<VEC>(cur, data, k, B, t, tile * kMmaTileCols + lane_col);
-
-  // B of product i: column g is bit-matrix row (g/2)*8 + 2i + g%2, so the
-  // counts D[.][2t + s] are bit 2i+s of parity byte t.
-  uint32_t bfrag[4];
-  const int o = g >> 1;
+__device__ __forceinline__ void lut_load_table(
+    const int8_t* __restrict__ mbits, int k, int out_rows,
+    uint2 (*lut)[kXorMaxK][3]) {
+  for (int i = threadIdx.x; i < out_rows * k; i += blockDim.x) {
+    const int o = i / k, j = i % k;
+    unsigned long long u = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    bfrag[i] = o < out_rows
-                   ? mma_mask_word<VEC>(
-                         mbits + (long long)(o * 8 + 2 * i + (g & 1)) * k * 8,
-                         k, t)
-                   : 0u;
-
-  for (; tile < tiles; tile += warps) {
-    uint4 nxt[4];
-    mma_load<VEC>(nxt, data, k, B, t, (tile + warps) * kMmaTileCols + lane_col);
-
-    uint32_t res[4];  // parity byte t of this lane's 16 columns
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      // 4x4 byte transpose: col[c] byte r = chunk 4t+r of column 4w+c
-      const uint32_t x0 = word_of(cur[0], w), x1 = word_of(cur[1], w);
-      const uint32_t x2 = word_of(cur[2], w), x3 = word_of(cur[3], w);
-      const uint32_t t0 = __byte_perm(x0, x1, 0x5140);
-      const uint32_t t1 = __byte_perm(x0, x1, 0x7362);
-      const uint32_t t2 = __byte_perm(x2, x3, 0x5140);
-      const uint32_t t3 = __byte_perm(x2, x3, 0x7362);
-      const uint32_t col[4] = {
-          __byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
-          __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
-      uint32_t half[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        // A rows g and g+8: columns 4w+2h and 4w+2h+1 of this lane
-        uint32_t d[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          mma_and_popc(d[i], col[2 * h], col[2 * h + 1], bfrag[i]);
-        half[h] = mma_parity_bytes(d);
-      }
-      res[w] = __byte_perm(half[0], half[1], 0x6420);
-    }
-
-    const long long col0 = tile * kMmaTileCols + lane_col;
-    if (t < out_rows && col0 < B) {
-      uint8_t* p = out + (long long)t * B + col0;
+    for (int x = 0; x < 8; ++x) {
+      const int8_t* p = mbits + (long long)(o * 8 + x) * k * 8 + j * 8;
+      unsigned long long v = 0;
       if (VEC) {
-        *reinterpret_cast<uint4*>(p) = make_uint4(res[0], res[1], res[2], res[3]);
+        v = __ldg(reinterpret_cast<const unsigned long long*>(p));
       } else {
 #pragma unroll
-        for (int c = 0; c < 16; ++c)
-          if (col0 + c < B) p[c] = static_cast<uint8_t>(res[c >> 2] >> (8 * (c & 3)));
+        for (int b = 0; b < 8; ++b)
+          v |= static_cast<unsigned long long>(static_cast<uint8_t>(p[b]))
+               << (8 * b);
+      }
+      u |= (v & 0x0101010101010101ull) << x;
+    }
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      uint32_t e8[2] = {0, 0};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int bi = 0; bi < 3; ++bi)
+          if (3 * g + bi < 8 && ((e >> bi) & 1))
+            v ^= static_cast<uint32_t>(u >> (8 * (3 * g + bi))) & 0xffu;
+        e8[e >> 2] |= v << (8 * (e & 3));
+      }
+      lut[o][j][g] = make_uint2(e8[0], e8[1]);
+    }
+  }
+}
+
+template <int OUT, bool VEC>
+__global__ void __launch_bounds__(kXorThreads, kXorBlocksPerSm)
+apply_bytes_w8_lut_kernel(const int8_t* __restrict__ mbits,
+                          const uint8_t* __restrict__ data,
+                          uint8_t* __restrict__ out, int k, long long B) {
+  __shared__ __align__(16) uint2 lut[kXorMaxOut][kXorMaxK][3];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint4 d[8];
+  xor_load<VEC>(d, data, 0, k, B, grp * kXorCols);
+  lut_load_table<VEC>(mbits, k, OUT, lut);
+  __syncthreads();
+  for (; grp * kXorCols < B; grp += stride) {
+    const long long col0 = grp * kXorCols;
+    uint32_t acc[OUT][4];
+#pragma unroll
+    for (int o = 0; o < OUT; ++o)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) acc[o][w] = 0;
+    for (int j0 = 0; j0 < k; j0 += 8) {
+      if (j0 > 0) xor_load<VEC>(d, data, j0, k, B, col0);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        if (j0 + jj < k) {
+          uint32_t sel[3][4];
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const uint32_t x = word_of(d[jj], w);
+            sel[0][w] = lut_sel(x, 0x07070707u);
+            sel[1][w] = lut_sel(x >> 3, 0x07070707u);
+            sel[2][w] = lut_sel(x >> 6, 0x03030303u);
+          }
+#pragma unroll
+          for (int o = 0; o < OUT; ++o) {
+            const uint2 t0 = lut[o][j0 + jj][0], t1 = lut[o][j0 + jj][1],
+                        t2 = lut[o][j0 + jj][2];
+#pragma unroll
+            for (int w = 0; w < 4; ++w)
+              acc[o][w] ^= prmt(t0.x, t0.y, sel[0][w]) ^
+                           prmt(t1.x, t1.y, sel[1][w]) ^
+                           prmt(t2.x, t2.y, sel[2][w]);
+          }
+        }
+      }
+    }
+    if (grp + stride < (B + kXorCols - 1) / kXorCols)
+      xor_load<VEC>(d, data, 0, k, B, (grp + stride) * kXorCols);
+#pragma unroll
+    for (int o = 0; o < OUT; ++o) {
+      uint32_t r[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) r[w] = prmt(acc[o][w], 0, 0x3120);
+      uint8_t* p = out + (long long)o * B + col0;
+      if (VEC) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kXorCols; ++c)
+          if (col0 + c < B) p[c] = static_cast<uint8_t>(r[c >> 2] >> (8 * (c & 3)));
+      }
+    }
+  }
+}
+
+// Double-buffered: the next group's rows are loading while this group's
+// products run; the grid is `blocks_per_sm` blocks an SM, each thread walking
+// several groups.
+template <int OUT, bool VEC>
+__global__ void __launch_bounds__(kXorThreads, 4)
+apply_bytes_w8_lut2_kernel(const int8_t* __restrict__ mbits,
+                           const uint8_t* __restrict__ data,
+                           uint8_t* __restrict__ out, int k, long long B) {
+  __shared__ __align__(16) uint2 lut[kXorMaxOut][kXorMaxK][3];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long groups = (B + kXorCols - 1) / kXorCols;
+  long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint4 cur[8];
+  xor_load<VEC>(cur, data, 0, k, B, grp * kXorCols);
+  lut_load_table<VEC>(mbits, k, OUT, lut);
+  __syncthreads();
+  for (; grp < groups; grp += stride) {
+    uint4 nxt[8];
+    xor_load<VEC>(nxt, data, 0, k, B, (grp + stride) * kXorCols);
+    const long long col0 = grp * kXorCols;
+    uint32_t acc[OUT][4];
+#pragma unroll
+    for (int o = 0; o < OUT; ++o)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) acc[o][w] = 0;
+    for (int j0 = 0; j0 < k; j0 += 8) {
+      if (j0 > 0) xor_load<VEC>(cur, data, j0, k, B, col0);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        if (j0 + jj < k) {
+          uint32_t sel[3][4];
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const uint32_t x = word_of(cur[jj], w);
+            sel[0][w] = lut_sel(x, 0x07070707u);
+            sel[1][w] = lut_sel(x >> 3, 0x07070707u);
+            sel[2][w] = lut_sel(x >> 6, 0x03030303u);
+          }
+#pragma unroll
+          for (int o = 0; o < OUT; ++o) {
+            const uint2 t0 = lut[o][j0 + jj][0], t1 = lut[o][j0 + jj][1],
+                        t2 = lut[o][j0 + jj][2];
+#pragma unroll
+            for (int w = 0; w < 4; ++w)
+              acc[o][w] ^= prmt(t0.x, t0.y, sel[0][w]) ^
+                           prmt(t1.x, t1.y, sel[1][w]) ^
+                           prmt(t2.x, t2.y, sel[2][w]);
+          }
+        }
       }
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) cur[r] = nxt[r];
+    for (int o = 0; o < OUT; ++o) {
+      uint32_t r[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) r[w] = prmt(acc[o][w], 0, 0x3120);
+      uint8_t* p = out + (long long)o * B + col0;
+      if (VEC) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kXorCols; ++c)
+          if (col0 + c < B) p[c] = static_cast<uint8_t>(r[c >> 2] >> (8 * (c & 3)));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) cur[r] = nxt[r];
+  }
+}
+
+// Streaming: each thread copies its own rows of the next groups into shared
+// memory with cp.async, kStages deep, and reads back only what it copied.
+constexpr int kStages = 3;
+constexpr int kLut3Threads = 256;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <bool VEC>
+__device__ __forceinline__ void lut3_issue(uint4* st, const uint8_t* __restrict__ data,
+                                           int k, long long B, long long col0) {
+  if (col0 >= B) return;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if (r < k) {
+      const uint8_t* p = data + (long long)r * B + col0;
+      uint4* dst = st + r * kLut3Threads + threadIdx.x;
+      if (VEC) {
+        cp_async16(dst, p);
+      } else {
+        uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int c = 0; c < kXorCols; ++c)
+          if (col0 + c < B)
+            w[c >> 2] |= static_cast<uint32_t>(__ldg(p + c)) << (8 * (c & 3));
+        *dst = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  }
+}
+
+template <int OUT, bool VEC>
+__global__ void __launch_bounds__(kLut3Threads, 2)
+apply_bytes_w8_lut3_kernel(const int8_t* __restrict__ mbits,
+                           const uint8_t* __restrict__ data,
+                           uint8_t* __restrict__ out, int k, long long B) {
+  extern __shared__ uint4 stages[];  // [kStages][8 rows][kLut3Threads]
+  __shared__ __align__(16) uint2 lut[kXorMaxOut][kXorMaxK][3];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long groups = (B + kXorCols - 1) / kXorCols;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    lut3_issue<VEC>(stages + s * 8 * kLut3Threads, data, k, B,
+                    (first + s * stride) * kXorCols);
+    cp_async_commit();
+  }
+  lut_load_table<VEC>(mbits, k, OUT, lut);
+  __syncthreads();
+  int it = 0;
+  for (long long grp = first; grp < groups; grp += stride, ++it) {
+    lut3_issue<VEC>(stages + ((it + kStages - 1) % kStages) * 8 * kLut3Threads,
+                    data, k, B, (grp + (kStages - 1) * stride) * kXorCols);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    const uint4* st = stages + (it % kStages) * 8 * kLut3Threads + threadIdx.x;
+    const long long col0 = grp * kXorCols;
+    uint4 d[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) d[r] = r < k ? st[r * kLut3Threads] : make_uint4(0, 0, 0, 0);
+    uint32_t acc[OUT][4];
+#pragma unroll
+    for (int o = 0; o < OUT; ++o)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) acc[o][w] = 0;
+    for (int j0 = 0; j0 < k; j0 += 8) {
+      if (j0 > 0) xor_load<VEC>(d, data, j0, k, B, col0);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        if (j0 + jj < k) {
+          uint32_t sel[3][4];
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const uint32_t x = word_of(d[jj], w);
+            sel[0][w] = lut_sel(x, 0x07070707u);
+            sel[1][w] = lut_sel(x >> 3, 0x07070707u);
+            sel[2][w] = lut_sel(x >> 6, 0x03030303u);
+          }
+#pragma unroll
+          for (int o = 0; o < OUT; ++o) {
+            const uint2 t0 = lut[o][j0 + jj][0], t1 = lut[o][j0 + jj][1],
+                        t2 = lut[o][j0 + jj][2];
+#pragma unroll
+            for (int w = 0; w < 4; ++w)
+              acc[o][w] ^= prmt(t0.x, t0.y, sel[0][w]) ^
+                           prmt(t1.x, t1.y, sel[1][w]) ^
+                           prmt(t2.x, t2.y, sel[2][w]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < OUT; ++o) {
+      uint32_t r[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) r[w] = prmt(acc[o][w], 0, 0x3120);
+      uint8_t* p = out + (long long)o * B + col0;
+      if (VEC) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kXorCols; ++c)
+          if (col0 + c < B) p[c] = static_cast<uint8_t>(r[c >> 2] >> (8 * (c & 3)));
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+__device__ __forceinline__ uint32_t xor3(uint32_t a, uint32_t b, uint32_t c) {
+  return a ^ b ^ c;
+}
+
+// Selectors of field g (bits 3g.. of each byte: 3 bits, 2 for g = 2) of a pair
+// of data words A, B given p = prmt(A, B, 0x5140) = [a0 b0 a1 b1] and
+// q = prmt(A, B, 0x7362) = [a2 b2 a3 b3]: nibbles a0 a2 b0 b2 (first) and
+// a1 a3 b1 b3 (second, from bit 16).
+template <int G>
+__device__ __forceinline__ uint32_t lut4_sel(uint32_t p, uint32_t q) {
+  constexpr uint32_t m = G == 2 ? 0x03030303u : 0x07070707u;
+  const uint32_t qs = G == 0 ? q << 4 : G == 1 ? q << 1 : q >> 2;
+  return ((p >> (3 * G)) & m) | (qs & (m << 4));
+}
+
+template <int OUT, bool VEC>
+__global__ void __launch_bounds__(kXorThreads, kXorBlocksPerSm)
+apply_bytes_w8_lut4_kernel(const int8_t* __restrict__ mbits,
+                           const uint8_t* __restrict__ data,
+                           uint8_t* __restrict__ out, int k, long long B) {
+  __shared__ __align__(16) uint2 lut[kXorMaxOut][kXorMaxK][3];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint4 d[8];
+  xor_load<VEC>(d, data, 0, k, B, grp * kXorCols);
+  lut_load_table<VEC>(mbits, k, OUT, lut);
+  __syncthreads();
+  for (; grp * kXorCols < B; grp += stride) {
+    const long long col0 = grp * kXorCols;
+    // acc[o][pair][0]: bytes a0 a2 b0 b2, [1]: a1 a3 b1 b3
+    uint32_t acc[OUT][2][2];
+#pragma unroll
+    for (int o = 0; o < OUT; ++o)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[o][i >> 1][i & 1] = 0;
+    for (int j0 = 0; j0 < k; j0 += 8) {
+      if (j0 > 0) xor_load<VEC>(d, data, j0, k, B, col0);
+#pragma unroll
+      for (int jj = 0; jj < 8; jj += 2) {
+        if (j0 + jj < k) {
+          const bool two = j0 + jj + 1 < k;
+          uint32_t sel[2][2][3][2];  // [j][pair][g][half]
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int pr = 0; pr < 2; ++pr) {
+              const uint32_t a = word_of(d[jj + h], 2 * pr);
+              const uint32_t b = word_of(d[jj + h], 2 * pr + 1);
+              const uint32_t p = __byte_perm(a, b, 0x5140);
+              const uint32_t q = __byte_perm(a, b, 0x7362);
+              const uint32_t r0 = lut4_sel<0>(p, q), r1 = lut4_sel<1>(p, q),
+                             r2 = lut4_sel<2>(p, q);
+              sel[h][pr][0][0] = r0; sel[h][pr][0][1] = r0 >> 16;
+              sel[h][pr][1][0] = r1; sel[h][pr][1][1] = r1 >> 16;
+              sel[h][pr][2][0] = r2; sel[h][pr][2][1] = r2 >> 16;
+            }
+#pragma unroll
+          for (int o = 0; o < OUT; ++o) {
+            const int j = j0 + jj;
+            const uint2 a0 = lut[o][j][0], a1 = lut[o][j][1], a2 = lut[o][j][2];
+            uint2 b0 = make_uint2(0, 0), b1 = b0, b2 = b0;
+            if (two) { b0 = lut[o][j + 1][0]; b1 = lut[o][j + 1][1]; b2 = lut[o][j + 1][2]; }
+#pragma unroll
+            for (int pr = 0; pr < 2; ++pr)
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                uint32_t x = acc[o][pr][hf];
+                x = xor3(x, prmt(a0.x, a0.y, sel[0][pr][0][hf]),
+                         prmt(a1.x, a1.y, sel[0][pr][1][hf]));
+                x = xor3(x, prmt(a2.x, a2.y, sel[0][pr][2][hf]),
+                         prmt(b0.x, b0.y, sel[1][pr][0][hf]));
+                x = xor3(x, prmt(b1.x, b1.y, sel[1][pr][1][hf]),
+                         prmt(b2.x, b2.y, sel[1][pr][2][hf]));
+                acc[o][pr][hf] = x;
+              }
+          }
+        }
+      }
+    }
+    if (grp + stride < (B + kXorCols - 1) / kXorCols)
+      xor_load<VEC>(d, data, 0, k, B, (grp + stride) * kXorCols);
+#pragma unroll
+    for (int o = 0; o < OUT; ++o) {
+      uint32_t r[4];
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        r[2 * pr] = __byte_perm(acc[o][pr][0], acc[o][pr][1], 0x5140);
+        r[2 * pr + 1] = __byte_perm(acc[o][pr][0], acc[o][pr][1], 0x7362);
+      }
+      uint8_t* p = out + (long long)o * B + col0;
+      if (VEC) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kXorCols; ++c)
+          if (col0 + c < B) p[c] = static_cast<uint8_t>(r[c >> 2] >> (8 * (c & 3)));
+      }
+    }
+  }
+}
+
+// Streaming in small rounds: W words (4W columns) a thread a round, loads
+// two rounds ahead in a ring of three register buffers.
+template <int W>
+__device__ __forceinline__ void lut5_load(uint32_t (&v)[8][W],
+                                          const uint8_t* __restrict__ data,
+                                          int k, long long B, long long col0) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) v[r][w] = 0;
+    if (r < k && col0 < B) {
+      const uint8_t* p = data + (long long)r * B + col0;
+      if (W == 1) {
+        v[r][0] = __ldg(reinterpret_cast<const uint32_t*>(p));
+      } else {
+        const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+        v[r][0] = x.x;
+        v[r][W - 1] = x.y;
+      }
+    }
+  }
+}
+
+template <int OUT, int W>
+__device__ __forceinline__ void lut5_round(const uint32_t (&v)[8][W],
+                                           const uint2 (*lut)[kXorMaxK][3],
+                                           uint8_t* __restrict__ out, int k,
+                                           long long B, long long col0) {
+  if (col0 >= B) return;
+  uint32_t acc[OUT][W];
+#pragma unroll
+  for (int o = 0; o < OUT; ++o)
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc[o][w] = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < k) {
+      uint32_t sel[3][W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        sel[0][w] = lut_sel(v[j][w], 0x07070707u);
+        sel[1][w] = lut_sel(v[j][w] >> 3, 0x07070707u);
+        sel[2][w] = lut_sel(v[j][w] >> 6, 0x03030303u);
+      }
+#pragma unroll
+      for (int o = 0; o < OUT; ++o) {
+        const uint2 t0 = lut[o][j][0], t1 = lut[o][j][1], t2 = lut[o][j][2];
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+          acc[o][w] ^= prmt(t0.x, t0.y, sel[0][w]) ^ prmt(t1.x, t1.y, sel[1][w]) ^
+                       prmt(t2.x, t2.y, sel[2][w]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < OUT; ++o) {
+    uint8_t* p = out + (long long)o * B + col0;
+    if (W == 1) {
+      *reinterpret_cast<uint32_t*>(p) = prmt(acc[o][0], 0, 0x3120);
+    } else {
+      *reinterpret_cast<uint2*>(p) =
+          make_uint2(prmt(acc[o][0], 0, 0x3120), prmt(acc[o][W - 1], 0, 0x3120));
+    }
+  }
+}
+
+template <int OUT, int W>
+__global__ void __launch_bounds__(kXorThreads)
+apply_bytes_w8_lut5_kernel(const int8_t* __restrict__ mbits,
+                           const uint8_t* __restrict__ data,
+                           uint8_t* __restrict__ out, int k, long long B) {
+  __shared__ __align__(16) uint2 lut[kXorMaxOut][kXorMaxK][3];
+  const long long step = (long long)gridDim.x * blockDim.x * 4 * W;
+  long long col = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4 * W;
+  uint32_t b0[8][W], b1[8][W], b2[8][W];
+  lut5_load<W>(b0, data, k, B, col);
+  lut5_load<W>(b1, data, k, B, col + step);
+  lut_load_table<true>(mbits, k, OUT, lut);
+  __syncthreads();
+  for (; col < B; col += 3 * step) {
+    lut5_load<W>(b2, data, k, B, col + 2 * step);
+    lut5_round<OUT, W>(b0, lut, out, k, B, col);
+    lut5_load<W>(b0, data, k, B, col + 3 * step);
+    lut5_round<OUT, W>(b1, lut, out, k, B, col + step);
+    lut5_load<W>(b1, data, k, B, col + 4 * step);
+    lut5_round<OUT, W>(b2, lut, out, k, B, col + 2 * step);
   }
 }
 
@@ -425,9 +901,9 @@ int sm_count() {
 }
 
 int grid_for(long long columns, int cols_per_thread,
-             int blocks_per_sm = kBlocksPerSm) {
+             int blocks_per_sm = kBlocksPerSm, int threads = kThreads) {
   const long long groups = (columns + cols_per_thread - 1) / cols_per_thread;
-  const long long blocks = (groups + kThreads - 1) / kThreads;
+  const long long blocks = (groups + threads - 1) / threads;
   const long long cap = (long long)sm_count() * blocks_per_sm;
   return static_cast<int>(blocks < cap ? blocks : cap);
 }
@@ -479,9 +955,9 @@ struct Gf2Matmul {
   }
 };
 
-// K1's routes (ops/cuda_gf2.py K1_ROUTES names them): the mma kernel with 16-
+// K1's routes (ops/cuda_gf2.py K1_ROUTES names them): the xor kernel with 16-
 // or 1-byte accesses, the popc kernel with 4- or 1-byte accesses.
-enum K1Route { kMmaV16 = 0, kMmaB1 = 1, kPopcV4 = 2, kPopcB1 = 3 };
+enum K1Route { kXorV16 = 0, kXorB1 = 1, kPopcV4 = 2, kPopcB1 = 3 };
 
 int popc_route(const uint8_t* data, const uint8_t* out, int k, long long B) {
   return k <= 32 && B % 4 == 0 && aligned4(data) && aligned4(out) ? kPopcV4
@@ -490,10 +966,22 @@ int popc_route(const uint8_t* data, const uint8_t* out, int k, long long B) {
 
 int k1_route(const int8_t* mbits, const uint8_t* data, const uint8_t* out,
              int k, int out_rows, long long B) {
-  if (k <= kMmaMaxK && out_rows <= kMmaMaxOut)
+  if (k <= kXorMaxK && out_rows <= kXorMaxOut)
     return B % 16 == 0 && aligned16(mbits) && aligned16(data) && aligned16(out)
-               ? kMmaV16 : kMmaB1;
+               ? kXorV16 : kXorB1;
   return popc_route(data, out, k, B);
+}
+
+template <int OUT>
+void launch_xor(bool vec, cudaStream_t stream, const int8_t* mbits,
+                const uint8_t* data, uint8_t* out, int k, long long B) {
+  const int grid = grid_for(B, kXorCols, kXorBlocksPerSm, kXorThreads);
+  if (vec)
+    apply_bytes_w8_xor_kernel<OUT, true><<<grid, kXorThreads, 0, stream>>>(
+        mbits, data, out, k, B);
+  else
+    apply_bytes_w8_xor_kernel<OUT, false><<<grid, kXorThreads, 0, stream>>>(
+        mbits, data, out, k, B);
 }
 
 int launch_w8(int route, const int8_t* mbits, const uint8_t* data, uint8_t* out,
@@ -503,16 +991,16 @@ int launch_w8(int route, const int8_t* mbits, const uint8_t* data, uint8_t* out,
   if (k < 1 || out_rows < 1 || B < 1 || W > CTT_MAX_MASK_WORDS ||
       smem > CTT_MAX_MASK_BYTES)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kMmaV16 || route == kMmaB1) {
-    if (k > kMmaMaxK || out_rows > kMmaMaxOut)
+  if (route == kXorV16 || route == kXorB1) {
+    if (k > kXorMaxK || out_rows > kXorMaxOut)
       return static_cast<int>(cudaErrorInvalidValue);
-    const int grid = grid_for(B, kMmaTileCols / 32, kMmaBlocksPerSm);
-    if (route == kMmaV16)
-      apply_bytes_w8_mma_kernel<true><<<grid, kThreads, 0, stream>>>(
-          mbits, data, out, k, out_rows, B);
-    else
-      apply_bytes_w8_mma_kernel<false><<<grid, kThreads, 0, stream>>>(
-          mbits, data, out, k, out_rows, B);
+    const bool vec = route == kXorV16;
+    switch (out_rows) {
+      case 1: launch_xor<1>(vec, stream, mbits, data, out, k, B); break;
+      case 2: launch_xor<2>(vec, stream, mbits, data, out, k, B); break;
+      case 3: launch_xor<3>(vec, stream, mbits, data, out, k, B); break;
+      default: launch_xor<4>(vec, stream, mbits, data, out, k, B); break;
+    }
     return static_cast<int>(cudaGetLastError());
   }
   return dispatch<ApplyBytesW8>(W, route == kPopcV4, B, smem, stream, mbits,
@@ -555,6 +1043,58 @@ extern "C" int ctt_gf2_matmul(const int8_t* mbits, const int8_t* bits,
   return dispatch<Gf2Matmul>(W, vec, B, smem,
                              static_cast<cudaStream_t>(stream), mbits, bits,
                              out, R, C, B);
+}
+
+template <int OUT>
+void launch_variant(int variant, cudaStream_t stream, const int8_t* mbits,
+                    const uint8_t* data, uint8_t* out, int k, long long B) {
+  const int grid = grid_for(B, kXorCols, kXorBlocksPerSm, kXorThreads);
+  if (variant == 1)
+    apply_bytes_w8_xor_kernel<OUT, true, 1><<<grid, kXorThreads, 0, stream>>>(
+        mbits, data, out, k, B);
+  else if (variant == 2)
+    apply_bytes_w8_lut_kernel<OUT, true><<<grid, kXorThreads, 0, stream>>>(
+        mbits, data, out, k, B);
+  else if (variant <= 6)  // 3, 4, 5, 6: double-buffered, 1..4 blocks an SM
+    apply_bytes_w8_lut2_kernel<OUT, true>
+        <<<grid_for(B, kXorCols, variant - 2, kXorThreads), kXorThreads, 0,
+           stream>>>(mbits, data, out, k, B);
+  else if (variant == 9)
+    apply_bytes_w8_lut4_kernel<OUT, true><<<grid, kXorThreads, 0, stream>>>(
+        mbits, data, out, k, B);
+  else if (variant >= 10 && variant <= 12)  // 4 columns, 2/4/8 blocks an SM
+    apply_bytes_w8_lut5_kernel<OUT, 1>
+        <<<grid_for(B, 4, 1 << (variant - 9), kXorThreads), kXorThreads, 0,
+           stream>>>(mbits, data, out, k, B);
+  else if (variant >= 13 && variant <= 15)  // 8 columns, 2/4/8 blocks an SM
+    apply_bytes_w8_lut5_kernel<OUT, 2>
+        <<<grid_for(B, 8, 1 << (variant - 12), kXorThreads), kXorThreads, 0,
+           stream>>>(mbits, data, out, k, B);
+  else {  // 7, 8: cp.async stages, 1 or 2 blocks an SM
+    const size_t smem = sizeof(uint4) * kStages * 8 * kLut3Threads;
+    cudaFuncSetAttribute(apply_bytes_w8_lut3_kernel<OUT, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    apply_bytes_w8_lut3_kernel<OUT, true>
+        <<<grid_for(B, kXorCols, variant - 6, kLut3Threads), kLut3Threads, smem,
+           stream>>>(mbits, data, out, k, B);
+  }
+}
+
+// experiment: 1 = xor with arithmetic S, 2 = prmt lookups (16-byte route only)
+extern "C" int ctt_apply_bytes_w8_variant(int variant, const int8_t* mbits,
+                                          const uint8_t* data, uint8_t* out,
+                                          int k, int out_rows, long long B,
+                                          void* stream) {
+  if (k1_route(mbits, data, out, k, out_rows, B) != kXorV16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (out_rows) {
+    case 1: launch_variant<1>(variant, st, mbits, data, out, k, B); break;
+    case 2: launch_variant<2>(variant, st, mbits, data, out, k, B); break;
+    case 3: launch_variant<3>(variant, st, mbits, data, out, k, B); break;
+    default: launch_variant<4>(variant, st, mbits, data, out, k, B); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* ctt_error_string(int code) {

@@ -28,8 +28,8 @@ extern "C" {
 int ctt_apply_bytes_w8(const int8_t* mbits, const uint8_t* data, uint8_t* out,
                        int k, int out_rows, long long B, void* stream);
 
-// The route ctt_apply_bytes_w8 takes for these operands: 0 mma with 16-byte
-// accesses, 1 mma with byte accesses (k <= 16 and out_rows <= 4), 2 popc with
+// The route ctt_apply_bytes_w8 takes for these operands: 0 xor with 16-byte
+// accesses, 1 xor with byte accesses (k <= 16 and out_rows <= 4), 2 popc with
 // 4-byte accesses, 3 popc with byte accesses (every other shape).
 int ctt_apply_bytes_w8_route(const int8_t* mbits, const uint8_t* data,
                              const uint8_t* out, int k, int out_rows,

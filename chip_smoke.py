@@ -376,8 +376,8 @@ def phase_main(device):
     print(f"main path apply_bytes_w8 routes: {json.dumps(routes)}")
     for name, n in counts.items():
         check(n > 0, f"kernel {name} never launched on the main path")
-    check(routes["mma.v16"] + routes["mma.b1"] == counts["apply_bytes_w8"],
-          f"apply_bytes_w8 left the mma route on the main path: {routes}")
+    check(routes["xor.v16"] + routes["xor.b1"] == counts["apply_bytes_w8"],
+          f"apply_bytes_w8 left the xor route on the main path: {routes}")
     return counts, routes
 
 

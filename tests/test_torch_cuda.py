@@ -31,20 +31,47 @@ def on(card, a: np.ndarray) -> torch.Tensor:
 
 
 def test_apply_bytes_w8_matches_plain(card):
+    """Both K1 routes, the wrapper's choice and the popc route, against the
+    plain version: k=8 with every parity count the xor route takes, ragged
+    and misaligned B, and wider k."""
     rng = np.random.default_rng(5)
-    bm = on(card, matrix_to_bitmatrix(
-        vandermonde_coding_matrix(8, 3, 8), 8).astype(np.int8))
-    for B in (1, 3, 1000, 4096, 32768 + 17):
-        flat = on(card, rng.integers(0, 256, size=8 * B + 1, dtype=np.uint8))
-        for data in (flat[:8 * B].view(8, B), flat[1:].view(8, B)):
-            assert torch.equal(cuda_gf2.apply_bytes_w8(bm, data),
-                               cuda_gf2.apply_bytes_w8_plain(bm, data))
-    for k, m, B in ((12, 4, 1001), (40, 2, 300)):
+    for out_rows in (1, 2, 3, 4):
+        bm = on(card, rng.integers(-128, 128, size=(out_rows * 8, 64),
+                                   dtype=np.int8))
+        for B in (1, 3, 31, 1000, 4096, 32768 + 17, 524288):
+            flat = on(card, rng.integers(0, 256, size=8 * B + 1, dtype=np.uint8))
+            for data in (flat[:8 * B].view(8, B), flat[1:].view(8, B)):
+                want = cuda_gf2.apply_bytes_w8_plain(bm, data)
+                assert torch.equal(cuda_gf2.apply_bytes_w8(bm, data), want)
+                assert torch.equal(cuda_gf2.apply_bytes_w8_popc(bm, data), want)
+    for k, m, B in ((12, 4, 1001), (16, 4, 4096), (40, 2, 300)):
         bm = on(card, rng.integers(0, 2, size=(m * 8, k * 8), dtype=np.int8))
         data = on(card, rng.integers(0, 256, size=(k, B), dtype=np.uint8))
-        assert torch.equal(cuda_gf2.apply_bytes_w8(bm, data),
-                           cuda_gf2.apply_bytes_w8_plain(bm, data))
+        want = cuda_gf2.apply_bytes_w8_plain(bm, data)
+        assert torch.equal(cuda_gf2.apply_bytes_w8(bm, data), want)
+        assert torch.equal(cuda_gf2.apply_bytes_w8_popc(bm, data), want)
     torch.cuda.synchronize()
+
+
+def test_apply_bytes_w8_route_mirror_matches_the_entry(card):
+    """apply_bytes_w8_route names the route ctt_apply_bytes_w8 takes, and
+    the wrapper counts the launch under it."""
+    lib = cuda_gf2._lib()
+    rng = np.random.default_rng(9)
+    for k, m in ((8, 3), (8, 4), (16, 1), (12, 4), (17, 3), (8, 5), (40, 2)):
+        bm = on(card, rng.integers(0, 2, size=(m * 8, k * 8), dtype=np.int8))
+        for B, offset in ((4096, 0), (4096, 1), (1000, 0), (1002, 2)):
+            flat = on(card, rng.integers(0, 256, size=k * B + offset,
+                                         dtype=np.uint8))
+            data = flat[offset:].view(k, B)
+            before = dict(cuda_gf2.apply_bytes_w8.routes)
+            out = cuda_gf2.apply_bytes_w8(bm, data)
+            route = cuda_gf2.apply_bytes_w8_route(
+                k, m, B, bm.data_ptr(), data.data_ptr(), out.data_ptr())
+            code = lib.ctt_apply_bytes_w8_route(
+                bm.data_ptr(), data.data_ptr(), out.data_ptr(), k, m, B)
+            assert cuda_gf2.K1_ROUTES[code] == route
+            assert cuda_gf2.apply_bytes_w8.routes[route] == before[route] + 1
 
 
 def test_gf2_matmul_matches_plain(card):

@@ -84,6 +84,85 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(call, args, match):
         getattr(cuda_gf2, call)(*(t(a) for a in args))
 
 
+@pytest.mark.parametrize("k,out_rows,B,addresses,route", [
+    (8, 3, 524288, (0, 256, 512), "xor.v16"),   # reed_sol_van k=8 m=3
+    (8, 1, 4096, (0, 256, 512), "xor.v16"),
+    (16, 4, 4112, (0, 256, 512), "xor.v16"),    # the widest xor shape
+    (12, 4, 10001, (0, 256, 512), "xor.b1"),    # ragged B
+    (8, 3, 4096, (0, 257, 512), "xor.b1"),      # data base + 1
+    (8, 3, 4096, (8, 256, 512), "xor.b1"),      # bit-matrix base + 8
+    (17, 3, 4096, (0, 256, 512), "popc.v4"),    # k > 16
+    (8, 5, 4096, (0, 256, 512), "popc.v4"),     # out_rows > 4
+    (40, 2, 3001, (0, 256, 512), "popc.b1"),    # k > 32: one column a thread
+    (40, 2, 3000, (0, 256, 512), "popc.b1"),
+    (20, 3, 1002, (0, 256, 512), "popc.b1"),    # B % 4 != 0
+    (20, 3, 1000, (0, 258, 512), "popc.b1"),    # data base + 2
+    (20, 3, 1000, (1, 256, 512), "popc.v4"),    # popc ignores the matrix base
+])
+def test_apply_bytes_w8_route_rule(k, out_rows, B, addresses, route):
+    """The routing rule of csrc/gf2.cu k1_route, as the wrapper mirrors it:
+    shape and alignment alone decide, with no knob."""
+    assert cuda_gf2.apply_bytes_w8_route(k, out_rows, B, *addresses) == route
+    assert route in cuda_gf2.K1_ROUTES
+
+
+def _prmt(a: np.ndarray, b: np.ndarray, sel: np.ndarray) -> np.ndarray:
+    """PTX prmt.b32 in its default mode on uint32 arrays, for selectors whose
+    nibbles never ask for sign replication."""
+    a, b, sel = np.broadcast_arrays(*(np.asarray(v, np.uint64) for v in (a, b, sel)))
+    pool = (b << np.uint64(32)) | a
+    out = np.zeros(a.shape, np.uint64)
+    for n in range(4):
+        nib = (sel >> np.uint64(4 * n)) & np.uint64(15)
+        assert not (nib & np.uint64(8)).any()
+        out |= ((pool >> (np.uint64(8) * nib)) & np.uint64(0xff)) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def xor_route_model(bm: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """numpy model of the xor route's index maps (csrc/gf2.cu): per 8x8 block
+    (o, j) of the bit-matrix, three 8-entry byte tables of the block applied
+    to bits 0-2, 3-5 and 6-7 of a byte; per data word of four columns, three
+    selectors whose nibbles hold those fields of columns 0, 2, 1, 3; one prmt
+    lookup per table, XORed, then a prmt back to column order."""
+    k, B = data.shape
+    out_rows = bm.shape[0] // 8
+    cols = -(-B // 4) * 4
+    words = np.zeros((k, cols), np.uint8)
+    words[:, :B] = data
+    words = words.view("<u4").astype(np.uint32)
+    # column b of block (o, j) as a byte: bit x = bm[o*8+x, j*8+b] & 1
+    block = (bm.astype(np.int64) & 1).reshape(out_rows, 8, k, 8)
+    colbyte = (block << np.arange(8)[None, :, None, None]).sum(axis=1)
+    acc = np.zeros((out_rows, words.shape[1]), np.uint32)
+    for g, mask in ((0, 0x07070707), (1, 0x07070707), (2, 0x03030303)):
+        entries = np.zeros((out_rows, k, 8), np.int64)
+        for e in range(8):
+            for i in range(3):
+                if (e >> i) & 1 and 3 * g + i < 8:
+                    entries[:, :, e] ^= colbyte[:, :, 3 * g + i]
+        lo = (entries[:, :, :4] << (8 * np.arange(4))).sum(axis=-1)
+        hi = (entries[:, :, 4:] << (8 * np.arange(4))).sum(axis=-1)
+        for j in range(k):
+            v = (words[j] >> np.uint32(3 * g)) & np.uint32(mask)
+            sel = v | (v >> np.uint32(12))
+            acc ^= _prmt(lo[:, j, None], hi[:, j, None], sel[None, :])
+    out = _prmt(acc, 0, 0x3120)
+    return np.ascontiguousarray(out).view(np.uint8)[:, :B]
+
+
+@pytest.mark.parametrize("k,out_rows,B", [(8, 3, 1000), (8, 1, 37),
+                                          (16, 4, 256), (3, 2, 5)])
+def test_xor_route_model_matches_plain(k, out_rows, B):
+    """The xor route's table and selector maps, modelled in numpy, give the
+    plain version's bytes: a layout fault shows here, not on the card."""
+    rng = np.random.default_rng(k * 100 + out_rows + B)
+    bm = rng.integers(-128, 128, size=(out_rows * 8, k * 8), dtype=np.int8)
+    data = rng.integers(0, 256, size=(k, B), dtype=np.uint8)
+    want = cuda_gf2.apply_bytes_w8_plain(t(bm), t(data)).numpy()
+    assert np.array_equal(xor_route_model(bm, data), want)
+
+
 def test_kernel_wrappers_refuse_non_contiguous():
     bits = torch.zeros((16, 64), dtype=torch.int8)
     with pytest.raises(ValueError, match="contiguous"):
