@@ -42,10 +42,22 @@ def _variant(v: int):
 
 def main() -> int:
     print(card_line())
-    fns = {"lut": _variant(2), "lut5.4c.2": _variant(10),
-           "lut5.4c.4": _variant(11), "lut5.4c.8": _variant(12),
-           "lut5.8c.2": _variant(13), "lut5.8c.4": _variant(14),
-           "lut5.8c.8": _variant(15), "popc": cuda_gf2.apply_bytes_w8_popc}
+    # xor.prmt: byte masks by a sign-mode prmt, one LOP3 per chunk bit (the
+    # wrapper's route at this commit); xor.arith: the same with masks by
+    # shift, and, multiply; lut: 3-bit fields looked up in 8-entry tables by
+    # prmt; lut2.N: lut with a register double buffer, N blocks an SM;
+    # lut3.N: lut fed by 3 cp.async stages, N blocks an SM; lut4: lut with
+    # selectors shared by word pairs and XORs merged over two chunks;
+    # lut5.Cc.N: lut in rounds of C columns a thread, loads two rounds
+    # ahead, N blocks an SM; popc: the first port's kernel.
+    fns = {"xor.prmt": cuda_gf2.apply_bytes_w8, "xor.arith": _variant(1),
+           "lut": _variant(2), "lut2.1": _variant(3), "lut2.2": _variant(4),
+           "lut2.3": _variant(5), "lut2.4": _variant(6), "lut3.1": _variant(7),
+           "lut3.2": _variant(8), "lut4": _variant(9),
+           "lut5.4c.2": _variant(10), "lut5.4c.4": _variant(11),
+           "lut5.4c.8": _variant(12), "lut5.8c.2": _variant(13),
+           "lut5.8c.4": _variant(14), "lut5.8c.8": _variant(15),
+           "popc": cuda_gf2.apply_bytes_w8_popc}
     bms = _bitmatrices("cuda")
     rng = np.random.default_rng(7)
     mats = {
