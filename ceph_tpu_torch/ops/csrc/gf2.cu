@@ -10,28 +10,39 @@
 //   transpose.  Output bit x of parity chunk o is the parity of
 //   (mask[o*8+x] & vector); eight of them pack into one parity byte.
 //   Bound: bytes.  It must read k*B and write out*B bytes ((k+m)*B, 23 MB at
-//   k=8 m=3 and B = 2 MiB, 6.9 us at the H100 SXM's 3.35 TB/s).
+//   k=8 m=3 and B = 2 MiB, 6.9 us at the H100 SXM's 3.35 TB/s).  A device
+//   copy of the same bytes, timed the same way, takes about twice that
+//   (chip_smoke.py's floor line), so the floor is launch and latency, not work.
 //   Two routes, chosen by k1_route from the shape and the alignment alone:
-//   * mma (k <= 16, out <= 4: every reed_sol_van k=8 m=3 encode, decode and
-//     recovery).  The popcounts run on the tensor cores, as binary
-//     m16n8k128 AND-popc products: A is sixteen columns' bit vectors (a 4x4
-//     byte transpose of four data rows in registers), B is eight bit-matrix
-//     rows, held in registers for the whole launch, and each count's low bit
-//     is its parity.  Product i gives the thread of quad lane t bits 2i and
-//     2i+1 of parity byte t for its two columns, so four products leave whole
-//     parity bytes in the thread that stores them, with no shuffle.  A warp
-//     walks 128-column tiles with 16-byte loads and 16-byte stores, the next
-//     tile's loads issued before the current tile's products.  What is left
-//     on the integer pipe is the transpose and packing the counts' low bits:
-//     about 26 operations per thread per 16 columns, against PR 1's out*8
-//     popcounts per column.
-//   * popc (any other shape: k=12 m=4, k=40, ...), the first port's kernel:
+//   * xor (k <= 16, out <= 4, B and the three addresses multiples of 16: every
+//     reed_sol_van k=8 m=3 encode, decode and recovery), popcount-free.  The
+//     product is linear over GF(2), so a parity byte is the XOR over chunks j
+//     and 3-bit fields g of each data byte of the block (o, j) of the
+//     bit-matrix applied to that field alone: an
+//     8-entry byte table per (o, j, g), built once per block in shared memory
+//     from 64-bit loads of the bit-matrix, and looked up for four columns at
+//     once by one prmt whose selector nibbles are the four fields.  At k=8 m=3
+//     that is about 52 integer operations a column (24 prmt lookups and the
+//     selectors and XORs around them), against the popc route's 24 popcounts
+//     at a quarter of the integer rate plus about 100 other operations.  Each
+//     thread takes 16 columns with one 16-byte load per data row and one
+//     16-byte store per parity row, the first group's loads issued before the
+//     tables are built.  What bounds it on an H100 80GB HBM3 at 700 W: the
+//     launch and load latency a copy of the same bytes also pays, plus the
+//     integer work, which the single wave of loads barely overlaps (PERF.md:
+//     about 18 us at B = 2 MiB against the copy's 14 us and the popc route's
+//     24 us).  Binary tensor-core products (mma m16n8k128 b1 AND-popc) were
+//     exact but ran within 5% of the popc route on that card, and deeper load
+//     pipelines (register double buffers, cp.async stages, smaller rounds)
+//     and fewer selector operations measured no faster.
+//   * popc (any other shape: k > 16, out > 4, ragged B or a misaligned base),
+//     the first port's kernel:
 //     each thread takes four adjacent columns with one 32-bit load per data row
 //     and one 32-bit store per parity row; per column it issues out*8
 //     popcounts, at 16 per clock per SM, plus a few logic operations each, so
 //     instruction issue bounds it (about 29% of the byte bound at B = 2 MiB on
 //     an H100 80GB HBM3 at 700 W, PERF.md).
-//   Each route has a byte-load variant for ragged B or a misaligned base;
+//   The popc route has a byte-load variant for ragged B or a misaligned base;
 //   there is no padding to a tile multiple.
 //
 // gf2_matmul replaces pallas_gf2_matmul (same file, kernel _gf2_matmul_kernel):
@@ -52,7 +63,7 @@
 // All: the bit-matrix is an operand (encode, decode and recovery share one
 // kernel), the grid strides over column groups, and each launch checks its own
 // arguments.  The popc route and gf2_matmul build row masks per block in
-// shared memory.
+// shared memory, the xor route its lookup tables.
 
 #include <cuda_runtime.h>
 
@@ -71,11 +82,11 @@ constexpr int kXorThreads = 128;
 constexpr int kXorBlocksPerSm = 6;  // 6 x 128 threads at <= 85 registers
 constexpr int kXorCols = 16;        // a thread's columns: one 16-byte load a row
 
-// Each byte of x becomes 0x00 or 0xff, from its top bit: prmt's sign mode
-// (bit 3 of each selector nibble), which __byte_perm does not promise.
-__device__ __forceinline__ uint32_t sign_bytes(uint32_t x) {
+// prmt.b32 in its default mode: byte n of the result is byte sel.nibble[n]
+// of the pair {b, a}.  A table lookup here: {b, a} holds 8 one-byte entries.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
   uint32_t r;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(0), "r"(0xBA98));
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
   return r;
 }
 
@@ -83,398 +94,92 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// Data rows j0..j0+7 (zero past row k), columns col0..col0+15 (zero past B).
-template <bool VEC>
+// The prmt selector of one field (the bits of m, at most 3) of each byte of
+// x: its nibbles hold the field of columns 0, 2, 1, 3, so every lookup
+// returns its four columns in that order.
+__device__ __forceinline__ uint32_t field_selector(uint32_t x, uint32_t m) {
+  const uint32_t v = x & m;
+  return v | (v >> 12);
+}
+
+// Data rows j0..j0+7 (zero past row k), columns col0..col0+15 (zero past B,
+// which is a multiple of 16 on this route).
 __device__ __forceinline__ void xor_load(uint4 (&v)[8],
                                          const uint8_t* __restrict__ data,
                                          int j0, int k, long long B,
                                          long long col0) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    v[r] = make_uint4(0, 0, 0, 0);
-    if (j0 + r < k && col0 < B) {
-      const uint8_t* p = data + (long long)(j0 + r) * B + col0;
-      if (VEC) {
-        v[r] = __ldg(reinterpret_cast<const uint4*>(p));
-      } else {
-        uint32_t w[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int c = 0; c < kXorCols; ++c)
-          if (col0 + c < B)
-            w[c >> 2] |= static_cast<uint32_t>(__ldg(p + c)) << (8 * (c & 3));
-        v[r] = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-  }
+  for (int r = 0; r < 8; ++r)
+    v[r] = j0 + r < k && col0 < B
+               ? __ldg(reinterpret_cast<const uint4*>(
+                     data + (long long)(j0 + r) * B + col0))
+               : make_uint4(0, 0, 0, 0);
 }
 
-// T[o][j][b]: column b of the 8x8 block (o, j) of the bit-matrix as a byte
-// (bit x = mbits[o*8+x, j*8+b] & 1), replicated into all four bytes.  One
-// thread per block (o, j) reads its eight rows with one 64-bit load each and
-// gathers the low bit of each int8: bits x of byte b of u are that column.
-template <bool VEC>
-__device__ __forceinline__ void xor_load_table(
+// table[o][j][g]: the 8x8 block (o, j) of the bit-matrix applied to every
+// value of field g of a data byte (bits 0-2, 3-5, 6-7), as 8 one-byte entries.
+// One thread per block reads its eight rows with one 64-bit load each and
+// gathers the low bit of each int8, so byte b of u is the block's column b
+// (bit x = mbits[o*8+x, j*8+b] & 1); an entry is the XOR of its field's
+// columns.
+__device__ __forceinline__ void xor_load_tables(
     const int8_t* __restrict__ mbits, int k, int out_rows,
-    uint32_t (*table)[kXorMaxK][8]) {
+    uint2 (*table)[kXorMaxK][3]) {
   for (int i = threadIdx.x; i < out_rows * k; i += blockDim.x) {
     const int o = i / k, j = i % k;
     unsigned long long u = 0;
 #pragma unroll
     for (int x = 0; x < 8; ++x) {
-      const int8_t* p = mbits + (long long)(o * 8 + x) * k * 8 + j * 8;
-      unsigned long long v = 0;
-      if (VEC) {
-        v = __ldg(reinterpret_cast<const unsigned long long*>(p));
-      } else {
-#pragma unroll
-        for (int b = 0; b < 8; ++b)
-          v |= static_cast<unsigned long long>(static_cast<uint8_t>(p[b]))
-               << (8 * b);
-      }
-      u |= (v & 0x0101010101010101ull) << x;
-    }
-#pragma unroll
-    for (int b = 0; b < 8; ++b)
-      table[o][j][b] = static_cast<uint32_t>((u >> (8 * b)) & 0xffu) * 0x01010101u;
-  }
-}
-
-// Parity byte o of 4 columns, held in one word, is the XOR over chunks j and
-// bits b of (S_jb & T[o][j][b]): S_jb spreads bit b of chunk j's four bytes
-// to 0x00/0xff (a shift and a sign-mode prmt, shared by every o), and each
-// term is one LOP3.  No popcount.
-template <int OUT, bool VEC, int SMODE = 0>
-__global__ void __launch_bounds__(kXorThreads, kXorBlocksPerSm)
-apply_bytes_w8_xor_kernel(const int8_t* __restrict__ mbits,
-                          const uint8_t* __restrict__ data,
-                          uint8_t* __restrict__ out, int k, long long B) {
-  __shared__ __align__(16) uint32_t table[kXorMaxOut][kXorMaxK][8];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-
-  uint4 d[8];  // first group's loads go out before the table is built
-  xor_load<VEC>(d, data, 0, k, B, grp * kXorCols);
-  xor_load_table<VEC>(mbits, k, OUT, table);
-  __syncthreads();
-
-  for (; grp * kXorCols < B; grp += stride) {
-    const long long col0 = grp * kXorCols;
-    uint32_t acc[OUT][4];
-#pragma unroll
-    for (int o = 0; o < OUT; ++o)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) acc[o][w] = 0;
-
-    for (int j0 = 0; j0 < k; j0 += 8) {
-      if (j0 > 0) xor_load<VEC>(d, data, j0, k, B, col0);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        if (j0 + jj < k) {
-#pragma unroll
-          for (int b4 = 0; b4 < 2; ++b4) {
-            uint4 t[OUT];
-#pragma unroll
-            for (int o = 0; o < OUT; ++o)
-              t[o] = *reinterpret_cast<const uint4*>(&table[o][j0 + jj][4 * b4]);
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) {
-              const int b = 4 * b4 + bb;
-              uint32_t s[4];
-#pragma unroll
-              for (int w = 0; w < 4; ++w)
-                s[w] = SMODE == 0
-                           ? sign_bytes(word_of(d[jj], w) << (7 - b))
-                           : ((word_of(d[jj], w) >> b) & 0x01010101u) * 0xffu;
-#pragma unroll
-              for (int o = 0; o < OUT; ++o) {
-                const uint32_t tb = word_of(t[o], bb);
-#pragma unroll
-                for (int w = 0; w < 4; ++w) acc[o][w] ^= s[w] & tb;
-              }
-            }
-          }
-        }
-      }
-    }
-
-    if (grp + stride < (B + kXorCols - 1) / kXorCols)
-      xor_load<VEC>(d, data, 0, k, B, (grp + stride) * kXorCols);
-#pragma unroll
-    for (int o = 0; o < OUT; ++o) {
-      uint8_t* p = out + (long long)o * B + col0;
-      if (VEC) {
-        *reinterpret_cast<uint4*>(p) =
-            make_uint4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < kXorCols; ++c)
-          if (col0 + c < B) p[c] = static_cast<uint8_t>(acc[o][c >> 2] >> (8 * (c & 3)));
-      }
-    }
-  }
-}
-
-// ---- experiment: 3-bit table lookups with prmt -----------------------------
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t lut_sel(uint32_t x, uint32_t m) {
-  const uint32_t v = x & m;
-  return v | (v >> 12);  // nibbles: columns 0, 2, 1, 3
-}
-
-template <bool VEC>
-__device__ __forceinline__ void lut_load_table(
-    const int8_t* __restrict__ mbits, int k, int out_rows,
-    uint2 (*lut)[kXorMaxK][3]) {
-  for (int i = threadIdx.x; i < out_rows * k; i += blockDim.x) {
-    const int o = i / k, j = i % k;
-    unsigned long long u = 0;
-#pragma unroll
-    for (int x = 0; x < 8; ++x) {
-      const int8_t* p = mbits + (long long)(o * 8 + x) * k * 8 + j * 8;
-      unsigned long long v = 0;
-      if (VEC) {
-        v = __ldg(reinterpret_cast<const unsigned long long*>(p));
-      } else {
-#pragma unroll
-        for (int b = 0; b < 8; ++b)
-          v |= static_cast<unsigned long long>(static_cast<uint8_t>(p[b]))
-               << (8 * b);
-      }
+      const unsigned long long v = __ldg(reinterpret_cast<const unsigned long long*>(
+          mbits + (long long)(o * 8 + x) * k * 8 + j * 8));
       u |= (v & 0x0101010101010101ull) << x;
     }
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
-      uint32_t e8[2] = {0, 0};
+      uint32_t half[2] = {0, 0};
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         uint32_t v = 0;
 #pragma unroll
-        for (int bi = 0; bi < 3; ++bi)
-          if (3 * g + bi < 8 && ((e >> bi) & 1))
-            v ^= static_cast<uint32_t>(u >> (8 * (3 * g + bi))) & 0xffu;
-        e8[e >> 2] |= v << (8 * (e & 3));
+        for (int i = 0; i < 3; ++i)
+          if (3 * g + i < 8 && ((e >> i) & 1))
+            v ^= static_cast<uint32_t>(u >> (8 * (3 * g + i))) & 0xffu;
+        half[e >> 2] |= v << (8 * (e & 3));
       }
-      lut[o][j][g] = make_uint2(e8[0], e8[1]);
+      table[o][j][g] = make_uint2(half[0], half[1]);
     }
   }
 }
 
-template <int OUT, bool VEC>
+// Parity byte o of four columns, held in one word, is the XOR over chunks j
+// and fields g of table[o][j][g] looked up at that field of chunk j's bytes:
+// three selectors a chunk word (shared by every o), then one prmt and about
+// one LOP3 a lookup.  No popcount.
+template <int OUT>
 __global__ void __launch_bounds__(kXorThreads, kXorBlocksPerSm)
-apply_bytes_w8_lut_kernel(const int8_t* __restrict__ mbits,
+apply_bytes_w8_xor_kernel(const int8_t* __restrict__ mbits,
                           const uint8_t* __restrict__ data,
                           uint8_t* __restrict__ out, int k, long long B) {
-  __shared__ __align__(16) uint2 lut[kXorMaxOut][kXorMaxK][3];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  uint4 d[8];
-  xor_load<VEC>(d, data, 0, k, B, grp * kXorCols);
-  lut_load_table<VEC>(mbits, k, OUT, lut);
-  __syncthreads();
-  for (; grp * kXorCols < B; grp += stride) {
-    const long long col0 = grp * kXorCols;
-    uint32_t acc[OUT][4];
-#pragma unroll
-    for (int o = 0; o < OUT; ++o)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) acc[o][w] = 0;
-    for (int j0 = 0; j0 < k; j0 += 8) {
-      if (j0 > 0) xor_load<VEC>(d, data, j0, k, B, col0);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        if (j0 + jj < k) {
-          uint32_t sel[3][4];
-#pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            const uint32_t x = word_of(d[jj], w);
-            sel[0][w] = lut_sel(x, 0x07070707u);
-            sel[1][w] = lut_sel(x >> 3, 0x07070707u);
-            sel[2][w] = lut_sel(x >> 6, 0x03030303u);
-          }
-#pragma unroll
-          for (int o = 0; o < OUT; ++o) {
-            const uint2 t0 = lut[o][j0 + jj][0], t1 = lut[o][j0 + jj][1],
-                        t2 = lut[o][j0 + jj][2];
-#pragma unroll
-            for (int w = 0; w < 4; ++w)
-              acc[o][w] ^= prmt(t0.x, t0.y, sel[0][w]) ^
-                           prmt(t1.x, t1.y, sel[1][w]) ^
-                           prmt(t2.x, t2.y, sel[2][w]);
-          }
-        }
-      }
-    }
-    if (grp + stride < (B + kXorCols - 1) / kXorCols)
-      xor_load<VEC>(d, data, 0, k, B, (grp + stride) * kXorCols);
-#pragma unroll
-    for (int o = 0; o < OUT; ++o) {
-      uint32_t r[4];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) r[w] = prmt(acc[o][w], 0, 0x3120);
-      uint8_t* p = out + (long long)o * B + col0;
-      if (VEC) {
-        *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < kXorCols; ++c)
-          if (col0 + c < B) p[c] = static_cast<uint8_t>(r[c >> 2] >> (8 * (c & 3)));
-      }
-    }
-  }
-}
-
-// Double-buffered: the next group's rows are loading while this group's
-// products run; the grid is `blocks_per_sm` blocks an SM, each thread walking
-// several groups.
-template <int OUT, bool VEC>
-__global__ void __launch_bounds__(kXorThreads, 4)
-apply_bytes_w8_lut2_kernel(const int8_t* __restrict__ mbits,
-                           const uint8_t* __restrict__ data,
-                           uint8_t* __restrict__ out, int k, long long B) {
-  __shared__ __align__(16) uint2 lut[kXorMaxOut][kXorMaxK][3];
+  __shared__ __align__(16) uint2 table[kXorMaxOut][kXorMaxK][3];
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long groups = (B + kXorCols - 1) / kXorCols;
   long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  uint4 cur[8];
-  xor_load<VEC>(cur, data, 0, k, B, grp * kXorCols);
-  lut_load_table<VEC>(mbits, k, OUT, lut);
+
+  uint4 d[8];  // the first group's loads go out before the tables are built
+  xor_load(d, data, 0, k, B, grp * kXorCols);
+  xor_load_tables(mbits, k, OUT, table);
   __syncthreads();
+
   for (; grp < groups; grp += stride) {
-    uint4 nxt[8];
-    xor_load<VEC>(nxt, data, 0, k, B, (grp + stride) * kXorCols);
     const long long col0 = grp * kXorCols;
-    uint32_t acc[OUT][4];
+    uint32_t acc[OUT][4];  // columns 0, 2, 1, 3 of each word
 #pragma unroll
     for (int o = 0; o < OUT; ++o)
 #pragma unroll
       for (int w = 0; w < 4; ++w) acc[o][w] = 0;
+
     for (int j0 = 0; j0 < k; j0 += 8) {
-      if (j0 > 0) xor_load<VEC>(cur, data, j0, k, B, col0);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        if (j0 + jj < k) {
-          uint32_t sel[3][4];
-#pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            const uint32_t x = word_of(cur[jj], w);
-            sel[0][w] = lut_sel(x, 0x07070707u);
-            sel[1][w] = lut_sel(x >> 3, 0x07070707u);
-            sel[2][w] = lut_sel(x >> 6, 0x03030303u);
-          }
-#pragma unroll
-          for (int o = 0; o < OUT; ++o) {
-            const uint2 t0 = lut[o][j0 + jj][0], t1 = lut[o][j0 + jj][1],
-                        t2 = lut[o][j0 + jj][2];
-#pragma unroll
-            for (int w = 0; w < 4; ++w)
-              acc[o][w] ^= prmt(t0.x, t0.y, sel[0][w]) ^
-                           prmt(t1.x, t1.y, sel[1][w]) ^
-                           prmt(t2.x, t2.y, sel[2][w]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < OUT; ++o) {
-      uint32_t r[4];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) r[w] = prmt(acc[o][w], 0, 0x3120);
-      uint8_t* p = out + (long long)o * B + col0;
-      if (VEC) {
-        *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < kXorCols; ++c)
-          if (col0 + c < B) p[c] = static_cast<uint8_t>(r[c >> 2] >> (8 * (c & 3)));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) cur[r] = nxt[r];
-  }
-}
-
-// Streaming: each thread copies its own rows of the next groups into shared
-// memory with cp.async, kStages deep, and reads back only what it copied.
-constexpr int kStages = 3;
-constexpr int kLut3Threads = 256;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <bool VEC>
-__device__ __forceinline__ void lut3_issue(uint4* st, const uint8_t* __restrict__ data,
-                                           int k, long long B, long long col0) {
-  if (col0 >= B) return;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    if (r < k) {
-      const uint8_t* p = data + (long long)r * B + col0;
-      uint4* dst = st + r * kLut3Threads + threadIdx.x;
-      if (VEC) {
-        cp_async16(dst, p);
-      } else {
-        uint32_t w[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int c = 0; c < kXorCols; ++c)
-          if (col0 + c < B)
-            w[c >> 2] |= static_cast<uint32_t>(__ldg(p + c)) << (8 * (c & 3));
-        *dst = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-  }
-}
-
-template <int OUT, bool VEC>
-__global__ void __launch_bounds__(kLut3Threads, 2)
-apply_bytes_w8_lut3_kernel(const int8_t* __restrict__ mbits,
-                           const uint8_t* __restrict__ data,
-                           uint8_t* __restrict__ out, int k, long long B) {
-  extern __shared__ uint4 stages[];  // [kStages][8 rows][kLut3Threads]
-  __shared__ __align__(16) uint2 lut[kXorMaxOut][kXorMaxK][3];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long groups = (B + kXorCols - 1) / kXorCols;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    lut3_issue<VEC>(stages + s * 8 * kLut3Threads, data, k, B,
-                    (first + s * stride) * kXorCols);
-    cp_async_commit();
-  }
-  lut_load_table<VEC>(mbits, k, OUT, lut);
-  __syncthreads();
-  int it = 0;
-  for (long long grp = first; grp < groups; grp += stride, ++it) {
-    lut3_issue<VEC>(stages + ((it + kStages - 1) % kStages) * 8 * kLut3Threads,
-                    data, k, B, (grp + (kStages - 1) * stride) * kXorCols);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    const uint4* st = stages + (it % kStages) * 8 * kLut3Threads + threadIdx.x;
-    const long long col0 = grp * kXorCols;
-    uint4 d[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) d[r] = r < k ? st[r * kLut3Threads] : make_uint4(0, 0, 0, 0);
-    uint32_t acc[OUT][4];
-#pragma unroll
-    for (int o = 0; o < OUT; ++o)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) acc[o][w] = 0;
-    for (int j0 = 0; j0 < k; j0 += 8) {
-      if (j0 > 0) xor_load<VEC>(d, data, j0, k, B, col0);
+      if (j0 > 0) xor_load(d, data, j0, k, B, col0);
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         if (j0 + jj < k) {
@@ -482,14 +187,14 @@ apply_bytes_w8_lut3_kernel(const int8_t* __restrict__ mbits,
 #pragma unroll
           for (int w = 0; w < 4; ++w) {
             const uint32_t x = word_of(d[jj], w);
-            sel[0][w] = lut_sel(x, 0x07070707u);
-            sel[1][w] = lut_sel(x >> 3, 0x07070707u);
-            sel[2][w] = lut_sel(x >> 6, 0x03030303u);
+            sel[0][w] = field_selector(x, 0x07070707u);
+            sel[1][w] = field_selector(x >> 3, 0x07070707u);
+            sel[2][w] = field_selector(x >> 6, 0x03030303u);
           }
 #pragma unroll
           for (int o = 0; o < OUT; ++o) {
-            const uint2 t0 = lut[o][j0 + jj][0], t1 = lut[o][j0 + jj][1],
-                        t2 = lut[o][j0 + jj][2];
+            const uint2 t0 = table[o][j0 + jj][0], t1 = table[o][j0 + jj][1],
+                        t2 = table[o][j0 + jj][2];
 #pragma unroll
             for (int w = 0; w < 4; ++w)
               acc[o][w] ^= prmt(t0.x, t0.y, sel[0][w]) ^
@@ -499,211 +204,14 @@ apply_bytes_w8_lut3_kernel(const int8_t* __restrict__ mbits,
         }
       }
     }
-#pragma unroll
-    for (int o = 0; o < OUT; ++o) {
-      uint32_t r[4];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) r[w] = prmt(acc[o][w], 0, 0x3120);
-      uint8_t* p = out + (long long)o * B + col0;
-      if (VEC) {
-        *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < kXorCols; ++c)
-          if (col0 + c < B) p[c] = static_cast<uint8_t>(r[c >> 2] >> (8 * (c & 3)));
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
 
-__device__ __forceinline__ uint32_t xor3(uint32_t a, uint32_t b, uint32_t c) {
-  return a ^ b ^ c;
-}
-
-// Selectors of field g (bits 3g.. of each byte: 3 bits, 2 for g = 2) of a pair
-// of data words A, B given p = prmt(A, B, 0x5140) = [a0 b0 a1 b1] and
-// q = prmt(A, B, 0x7362) = [a2 b2 a3 b3]: nibbles a0 a2 b0 b2 (first) and
-// a1 a3 b1 b3 (second, from bit 16).
-template <int G>
-__device__ __forceinline__ uint32_t lut4_sel(uint32_t p, uint32_t q) {
-  constexpr uint32_t m = G == 2 ? 0x03030303u : 0x07070707u;
-  const uint32_t qs = G == 0 ? q << 4 : G == 1 ? q << 1 : q >> 2;
-  return ((p >> (3 * G)) & m) | (qs & (m << 4));
-}
-
-template <int OUT, bool VEC>
-__global__ void __launch_bounds__(kXorThreads, kXorBlocksPerSm)
-apply_bytes_w8_lut4_kernel(const int8_t* __restrict__ mbits,
-                           const uint8_t* __restrict__ data,
-                           uint8_t* __restrict__ out, int k, long long B) {
-  __shared__ __align__(16) uint2 lut[kXorMaxOut][kXorMaxK][3];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long grp = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  uint4 d[8];
-  xor_load<VEC>(d, data, 0, k, B, grp * kXorCols);
-  lut_load_table<VEC>(mbits, k, OUT, lut);
-  __syncthreads();
-  for (; grp * kXorCols < B; grp += stride) {
-    const long long col0 = grp * kXorCols;
-    // acc[o][pair][0]: bytes a0 a2 b0 b2, [1]: a1 a3 b1 b3
-    uint32_t acc[OUT][2][2];
+    if (grp + stride < groups)  // the next group's loads go out before the stores
+      xor_load(d, data, 0, k, B, (grp + stride) * kXorCols);
 #pragma unroll
     for (int o = 0; o < OUT; ++o)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[o][i >> 1][i & 1] = 0;
-    for (int j0 = 0; j0 < k; j0 += 8) {
-      if (j0 > 0) xor_load<VEC>(d, data, j0, k, B, col0);
-#pragma unroll
-      for (int jj = 0; jj < 8; jj += 2) {
-        if (j0 + jj < k) {
-          const bool two = j0 + jj + 1 < k;
-          uint32_t sel[2][2][3][2];  // [j][pair][g][half]
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int pr = 0; pr < 2; ++pr) {
-              const uint32_t a = word_of(d[jj + h], 2 * pr);
-              const uint32_t b = word_of(d[jj + h], 2 * pr + 1);
-              const uint32_t p = __byte_perm(a, b, 0x5140);
-              const uint32_t q = __byte_perm(a, b, 0x7362);
-              const uint32_t r0 = lut4_sel<0>(p, q), r1 = lut4_sel<1>(p, q),
-                             r2 = lut4_sel<2>(p, q);
-              sel[h][pr][0][0] = r0; sel[h][pr][0][1] = r0 >> 16;
-              sel[h][pr][1][0] = r1; sel[h][pr][1][1] = r1 >> 16;
-              sel[h][pr][2][0] = r2; sel[h][pr][2][1] = r2 >> 16;
-            }
-#pragma unroll
-          for (int o = 0; o < OUT; ++o) {
-            const int j = j0 + jj;
-            const uint2 a0 = lut[o][j][0], a1 = lut[o][j][1], a2 = lut[o][j][2];
-            uint2 b0 = make_uint2(0, 0), b1 = b0, b2 = b0;
-            if (two) { b0 = lut[o][j + 1][0]; b1 = lut[o][j + 1][1]; b2 = lut[o][j + 1][2]; }
-#pragma unroll
-            for (int pr = 0; pr < 2; ++pr)
-#pragma unroll
-              for (int hf = 0; hf < 2; ++hf) {
-                uint32_t x = acc[o][pr][hf];
-                x = xor3(x, prmt(a0.x, a0.y, sel[0][pr][0][hf]),
-                         prmt(a1.x, a1.y, sel[0][pr][1][hf]));
-                x = xor3(x, prmt(a2.x, a2.y, sel[0][pr][2][hf]),
-                         prmt(b0.x, b0.y, sel[1][pr][0][hf]));
-                x = xor3(x, prmt(b1.x, b1.y, sel[1][pr][1][hf]),
-                         prmt(b2.x, b2.y, sel[1][pr][2][hf]));
-                acc[o][pr][hf] = x;
-              }
-          }
-        }
-      }
-    }
-    if (grp + stride < (B + kXorCols - 1) / kXorCols)
-      xor_load<VEC>(d, data, 0, k, B, (grp + stride) * kXorCols);
-#pragma unroll
-    for (int o = 0; o < OUT; ++o) {
-      uint32_t r[4];
-#pragma unroll
-      for (int pr = 0; pr < 2; ++pr) {
-        r[2 * pr] = __byte_perm(acc[o][pr][0], acc[o][pr][1], 0x5140);
-        r[2 * pr + 1] = __byte_perm(acc[o][pr][0], acc[o][pr][1], 0x7362);
-      }
-      uint8_t* p = out + (long long)o * B + col0;
-      if (VEC) {
-        *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < kXorCols; ++c)
-          if (col0 + c < B) p[c] = static_cast<uint8_t>(r[c >> 2] >> (8 * (c & 3)));
-      }
-    }
-  }
-}
-
-// Streaming in small rounds: W words (4W columns) a thread a round, loads
-// two rounds ahead in a ring of three register buffers.
-template <int W>
-__device__ __forceinline__ void lut5_load(uint32_t (&v)[8][W],
-                                          const uint8_t* __restrict__ data,
-                                          int k, long long B, long long col0) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int w = 0; w < W; ++w) v[r][w] = 0;
-    if (r < k && col0 < B) {
-      const uint8_t* p = data + (long long)r * B + col0;
-      if (W == 1) {
-        v[r][0] = __ldg(reinterpret_cast<const uint32_t*>(p));
-      } else {
-        const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
-        v[r][0] = x.x;
-        v[r][W - 1] = x.y;
-      }
-    }
-  }
-}
-
-template <int OUT, int W>
-__device__ __forceinline__ void lut5_round(const uint32_t (&v)[8][W],
-                                           const uint2 (*lut)[kXorMaxK][3],
-                                           uint8_t* __restrict__ out, int k,
-                                           long long B, long long col0) {
-  if (col0 >= B) return;
-  uint32_t acc[OUT][W];
-#pragma unroll
-  for (int o = 0; o < OUT; ++o)
-#pragma unroll
-    for (int w = 0; w < W; ++w) acc[o][w] = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (j < k) {
-      uint32_t sel[3][W];
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        sel[0][w] = lut_sel(v[j][w], 0x07070707u);
-        sel[1][w] = lut_sel(v[j][w] >> 3, 0x07070707u);
-        sel[2][w] = lut_sel(v[j][w] >> 6, 0x03030303u);
-      }
-#pragma unroll
-      for (int o = 0; o < OUT; ++o) {
-        const uint2 t0 = lut[o][j][0], t1 = lut[o][j][1], t2 = lut[o][j][2];
-#pragma unroll
-        for (int w = 0; w < W; ++w)
-          acc[o][w] ^= prmt(t0.x, t0.y, sel[0][w]) ^ prmt(t1.x, t1.y, sel[1][w]) ^
-                       prmt(t2.x, t2.y, sel[2][w]);
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < OUT; ++o) {
-    uint8_t* p = out + (long long)o * B + col0;
-    if (W == 1) {
-      *reinterpret_cast<uint32_t*>(p) = prmt(acc[o][0], 0, 0x3120);
-    } else {
-      *reinterpret_cast<uint2*>(p) =
-          make_uint2(prmt(acc[o][0], 0, 0x3120), prmt(acc[o][W - 1], 0, 0x3120));
-    }
-  }
-}
-
-template <int OUT, int W>
-__global__ void __launch_bounds__(kXorThreads)
-apply_bytes_w8_lut5_kernel(const int8_t* __restrict__ mbits,
-                           const uint8_t* __restrict__ data,
-                           uint8_t* __restrict__ out, int k, long long B) {
-  __shared__ __align__(16) uint2 lut[kXorMaxOut][kXorMaxK][3];
-  const long long step = (long long)gridDim.x * blockDim.x * 4 * W;
-  long long col = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4 * W;
-  uint32_t b0[8][W], b1[8][W], b2[8][W];
-  lut5_load<W>(b0, data, k, B, col);
-  lut5_load<W>(b1, data, k, B, col + step);
-  lut_load_table<true>(mbits, k, OUT, lut);
-  __syncthreads();
-  for (; col < B; col += 3 * step) {
-    lut5_load<W>(b2, data, k, B, col + 2 * step);
-    lut5_round<OUT, W>(b0, lut, out, k, B, col);
-    lut5_load<W>(b0, data, k, B, col + 3 * step);
-    lut5_round<OUT, W>(b1, lut, out, k, B, col + step);
-    lut5_load<W>(b1, data, k, B, col + 4 * step);
-    lut5_round<OUT, W>(b2, lut, out, k, B, col + 2 * step);
+      *reinterpret_cast<uint4*>(out + (long long)o * B + col0) =
+          make_uint4(prmt(acc[o][0], 0, 0x3120), prmt(acc[o][1], 0, 0x3120),
+                     prmt(acc[o][2], 0, 0x3120), prmt(acc[o][3], 0, 0x3120));
   }
 }
 
@@ -955,9 +463,9 @@ struct Gf2Matmul {
   }
 };
 
-// K1's routes (ops/cuda_gf2.py K1_ROUTES names them): the xor kernel with 16-
-// or 1-byte accesses, the popc kernel with 4- or 1-byte accesses.
-enum K1Route { kXorV16 = 0, kXorB1 = 1, kPopcV4 = 2, kPopcB1 = 3 };
+// K1's routes (ops/cuda_gf2.py K1_ROUTES names them): the xor kernel, the
+// popc kernel with 4- or 1-byte accesses.
+enum K1Route { kXor = 0, kPopcV4 = 1, kPopcB1 = 2 };
 
 int popc_route(const uint8_t* data, const uint8_t* out, int k, long long B) {
   return k <= 32 && B % 4 == 0 && aligned4(data) && aligned4(out) ? kPopcV4
@@ -966,22 +474,18 @@ int popc_route(const uint8_t* data, const uint8_t* out, int k, long long B) {
 
 int k1_route(const int8_t* mbits, const uint8_t* data, const uint8_t* out,
              int k, int out_rows, long long B) {
-  if (k <= kXorMaxK && out_rows <= kXorMaxOut)
-    return B % 16 == 0 && aligned16(mbits) && aligned16(data) && aligned16(out)
-               ? kXorV16 : kXorB1;
+  if (k <= kXorMaxK && out_rows <= kXorMaxOut && B % kXorCols == 0 &&
+      aligned16(mbits) && aligned16(data) && aligned16(out))
+    return kXor;
   return popc_route(data, out, k, B);
 }
 
 template <int OUT>
-void launch_xor(bool vec, cudaStream_t stream, const int8_t* mbits,
-                const uint8_t* data, uint8_t* out, int k, long long B) {
-  const int grid = grid_for(B, kXorCols, kXorBlocksPerSm, kXorThreads);
-  if (vec)
-    apply_bytes_w8_xor_kernel<OUT, true><<<grid, kXorThreads, 0, stream>>>(
-        mbits, data, out, k, B);
-  else
-    apply_bytes_w8_xor_kernel<OUT, false><<<grid, kXorThreads, 0, stream>>>(
-        mbits, data, out, k, B);
+void launch_xor(cudaStream_t stream, const int8_t* mbits, const uint8_t* data,
+                uint8_t* out, int k, long long B) {
+  apply_bytes_w8_xor_kernel<OUT>
+      <<<grid_for(B, kXorCols, kXorBlocksPerSm, kXorThreads), kXorThreads, 0,
+         stream>>>(mbits, data, out, k, B);
 }
 
 int launch_w8(int route, const int8_t* mbits, const uint8_t* data, uint8_t* out,
@@ -991,15 +495,12 @@ int launch_w8(int route, const int8_t* mbits, const uint8_t* data, uint8_t* out,
   if (k < 1 || out_rows < 1 || B < 1 || W > CTT_MAX_MASK_WORDS ||
       smem > CTT_MAX_MASK_BYTES)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kXorV16 || route == kXorB1) {
-    if (k > kXorMaxK || out_rows > kXorMaxOut)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const bool vec = route == kXorV16;
+  if (route == kXor) {
     switch (out_rows) {
-      case 1: launch_xor<1>(vec, stream, mbits, data, out, k, B); break;
-      case 2: launch_xor<2>(vec, stream, mbits, data, out, k, B); break;
-      case 3: launch_xor<3>(vec, stream, mbits, data, out, k, B); break;
-      default: launch_xor<4>(vec, stream, mbits, data, out, k, B); break;
+      case 1: launch_xor<1>(stream, mbits, data, out, k, B); break;
+      case 2: launch_xor<2>(stream, mbits, data, out, k, B); break;
+      case 3: launch_xor<3>(stream, mbits, data, out, k, B); break;
+      default: launch_xor<4>(stream, mbits, data, out, k, B); break;
     }
     return static_cast<int>(cudaGetLastError());
   }
@@ -1027,8 +528,8 @@ extern "C" int ctt_apply_bytes_w8_popc(const int8_t* mbits,
                                        const uint8_t* data, uint8_t* out,
                                        int k, int out_rows, long long B,
                                        void* stream) {
-  return launch_w8(popc_route(data, out, k, B), mbits, data, out, k, out_rows, B,
-                   static_cast<cudaStream_t>(stream));
+  return launch_w8(popc_route(data, out, k, B), mbits, data, out, k,
+                   out_rows, B, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ctt_gf2_matmul(const int8_t* mbits, const int8_t* bits,
@@ -1043,58 +544,6 @@ extern "C" int ctt_gf2_matmul(const int8_t* mbits, const int8_t* bits,
   return dispatch<Gf2Matmul>(W, vec, B, smem,
                              static_cast<cudaStream_t>(stream), mbits, bits,
                              out, R, C, B);
-}
-
-template <int OUT>
-void launch_variant(int variant, cudaStream_t stream, const int8_t* mbits,
-                    const uint8_t* data, uint8_t* out, int k, long long B) {
-  const int grid = grid_for(B, kXorCols, kXorBlocksPerSm, kXorThreads);
-  if (variant == 1)
-    apply_bytes_w8_xor_kernel<OUT, true, 1><<<grid, kXorThreads, 0, stream>>>(
-        mbits, data, out, k, B);
-  else if (variant == 2)
-    apply_bytes_w8_lut_kernel<OUT, true><<<grid, kXorThreads, 0, stream>>>(
-        mbits, data, out, k, B);
-  else if (variant <= 6)  // 3, 4, 5, 6: double-buffered, 1..4 blocks an SM
-    apply_bytes_w8_lut2_kernel<OUT, true>
-        <<<grid_for(B, kXorCols, variant - 2, kXorThreads), kXorThreads, 0,
-           stream>>>(mbits, data, out, k, B);
-  else if (variant == 9)
-    apply_bytes_w8_lut4_kernel<OUT, true><<<grid, kXorThreads, 0, stream>>>(
-        mbits, data, out, k, B);
-  else if (variant >= 10 && variant <= 12)  // 4 columns, 2/4/8 blocks an SM
-    apply_bytes_w8_lut5_kernel<OUT, 1>
-        <<<grid_for(B, 4, 1 << (variant - 9), kXorThreads), kXorThreads, 0,
-           stream>>>(mbits, data, out, k, B);
-  else if (variant >= 13 && variant <= 15)  // 8 columns, 2/4/8 blocks an SM
-    apply_bytes_w8_lut5_kernel<OUT, 2>
-        <<<grid_for(B, 8, 1 << (variant - 12), kXorThreads), kXorThreads, 0,
-           stream>>>(mbits, data, out, k, B);
-  else {  // 7, 8: cp.async stages, 1 or 2 blocks an SM
-    const size_t smem = sizeof(uint4) * kStages * 8 * kLut3Threads;
-    cudaFuncSetAttribute(apply_bytes_w8_lut3_kernel<OUT, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    apply_bytes_w8_lut3_kernel<OUT, true>
-        <<<grid_for(B, kXorCols, variant - 6, kLut3Threads), kLut3Threads, smem,
-           stream>>>(mbits, data, out, k, B);
-  }
-}
-
-// experiment: 1 = xor with arithmetic S, 2 = prmt lookups (16-byte route only)
-extern "C" int ctt_apply_bytes_w8_variant(int variant, const int8_t* mbits,
-                                          const uint8_t* data, uint8_t* out,
-                                          int k, int out_rows, long long B,
-                                          void* stream) {
-  if (k1_route(mbits, data, out, k, out_rows, B) != kXorV16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (out_rows) {
-    case 1: launch_variant<1>(variant, st, mbits, data, out, k, B); break;
-    case 2: launch_variant<2>(variant, st, mbits, data, out, k, B); break;
-    case 3: launch_variant<3>(variant, st, mbits, data, out, k, B); break;
-    default: launch_variant<4>(variant, st, mbits, data, out, k, B); break;
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* ctt_error_string(int code) {

@@ -2,13 +2,15 @@
 // (ceph_tpu_torch/ops/cuda_gf2.py) and the device helpers the popcount kernels
 // share.
 //
-// Both kernels compute out_bits = (M @ bits) & 1 over GF(2).  A bit-matrix row
-// becomes a row of 64-bit masks held in shared memory, a data column becomes a
-// bit vector gathered into registers, and each output bit is the parity of
+// Every kernel computes out_bits = (M @ bits) & 1 over GF(2).  In the popcount
+// kernels (gf2_matmul and apply_bytes_w8's popc route) a bit-matrix row becomes
+// a row of 64-bit masks held in shared memory, a data column becomes a bit
+// vector gathered into registers, and each output bit is the parity of
 // (mask & vector): popcount, low bit.  The parity of a sum of products depends
 // only on the low bit of each operand, so taking `& 1` of both operands first
 // is exact for every int8 input, negative ones included, and equals the int32
-// accumulate-then-`& 1` of the Pallas kernels this replaces.
+// accumulate-then-`& 1` of the Pallas kernels this replaces.  apply_bytes_w8's
+// xor route reads the bit-matrix the same way (low bits only).
 #pragma once
 
 #include <cstdint>
@@ -28,9 +30,9 @@ extern "C" {
 int ctt_apply_bytes_w8(const int8_t* mbits, const uint8_t* data, uint8_t* out,
                        int k, int out_rows, long long B, void* stream);
 
-// The route ctt_apply_bytes_w8 takes for these operands: 0 xor with 16-byte
-// accesses, 1 xor with byte accesses (k <= 16 and out_rows <= 4), 2 popc with
-// 4-byte accesses, 3 popc with byte accesses (every other shape).
+// The route ctt_apply_bytes_w8 takes for these operands: 0 xor (k <= 16,
+// out_rows <= 4, B and the three addresses multiples of 16), else 1 popc with
+// 4-byte accesses or 2 popc with byte accesses.
 int ctt_apply_bytes_w8_route(const int8_t* mbits, const uint8_t* data,
                              const uint8_t* out, int k, int out_rows,
                              long long B);

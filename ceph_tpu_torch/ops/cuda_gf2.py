@@ -6,8 +6,9 @@ about it are noted there):
 
 * ``apply_bytes_w8``  <- ``pallas_apply_bytes_w8``: an [out*8, k*8] bit-matrix
   applied to [k, B] uint8 chunks in the w=8 byte layout -> [out, B] uint8, on
-  one of two routes chosen by shape (``apply_bytes_w8_route``): a popcount-free
-  XOR kernel for k <= 16 and out <= 4, popcounts for any other shape;
+  one of two routes chosen by shape and alignment (``apply_bytes_w8_route``): a
+  popcount-free XOR kernel for k <= 16 and out <= 4 on 16-byte aligned rows,
+  popcounts for any other shape;
 * ``gf2_matmul``      <- ``pallas_gf2_matmul``: (M[R, C] @ bits[C, B]) & 1 on
   int8 operands -> [R, B] int8.
 
@@ -34,10 +35,9 @@ from ceph_tpu_torch.ops import build
 MAX_MASK_BYTES = 48 * 1024
 MAX_MASK_WORDS = 32
 
-#: K1's routes, by the code ctt_apply_bytes_w8_route returns: the XOR kernel
-#: with 16-byte or byte accesses, the popcount kernel with 4-byte or byte
-#: accesses
-K1_ROUTES = ("xor.v16", "xor.b1", "popc.v4", "popc.b1")
+#: K1's routes, by the code ctt_apply_bytes_w8_route returns: the XOR kernel,
+#: the popcount kernel with 4-byte or byte accesses
+K1_ROUTES = ("xor", "popc.v4", "popc.b1")
 
 
 @functools.cache
@@ -132,13 +132,12 @@ def apply_bytes_w8_route(k: int, out_rows: int, B: int, mbits_addr: int,
                          data_addr: int, out_addr: int) -> str:
     """The route ctt_apply_bytes_w8 takes for k data rows, out_rows parity
     rows, B columns and these operand addresses (csrc/gf2.cu k1_route): the
-    XOR kernel for k <= 16 and out_rows <= 4, with 16-byte accesses
-    where B and the three addresses are multiples of 16; else the popcount
-    kernel, with 4-byte accesses where k <= 32 and B and the data and output
-    addresses are multiples of 4."""
-    if k <= 16 and out_rows <= 4:
-        vec = all(n % 16 == 0 for n in (B, mbits_addr, data_addr, out_addr))
-        return "xor.v16" if vec else "xor.b1"
+    XOR kernel for k <= 16 and out_rows <= 4 where B and the three addresses
+    are multiples of 16; else the popcount kernel, with 4-byte accesses where
+    k <= 32 and B and the data and output addresses are multiples of 4."""
+    if k <= 16 and out_rows <= 4 and all(
+            n % 16 == 0 for n in (B, mbits_addr, data_addr, out_addr)):
+        return "xor"
     return _popc_route(k, B, data_addr, out_addr)
 
 
