@@ -299,7 +299,273 @@ apply_bytes_w8_kernel(const int8_t* __restrict__ mbits,
   }
 }
 
-// ---------------------------------------------------------------- K2 -------
+// ---------------------------------------------------------- K2, mma route --
+
+constexpr int kMmaMaxR = 64;            // four m16 tiles of output rows
+constexpr int kMmaMaxC = 128;           // four k32 tiles of input rows
+constexpr int kMmaConsumerWarps = 8;    // one 32-column block of a pass each
+constexpr int kMmaProducerWarps = 2;    // each copies every P-th 32 rows
+constexpr int kMmaBlocksPerSm = 2;
+constexpr int kMmaSpan = kMmaConsumerWarps * 32;  // columns of one pass
+// Columns a stage holds: one bulk copy moves a row's share of a tile, and a
+// producer warp issues copies at a limited rate, so wider copies keep more
+// bytes moving.  512 where three stages of C <= 64 rows fit in each of two
+// blocks an SM, else 256.
+constexpr int mma_tile(int kt) { return kt <= 2 ? 2 * kMmaSpan : kMmaSpan; }
+// Row pitch of a stage in shared memory: 32 bytes over the tile, so rows
+// 4i+t (t = 0..3) start 8 banks apart and the fragment loads are free of
+// bank conflicts; a multiple of 16, as bulk-copy destinations must be.
+__host__ __device__ constexpr int mma_pitch(int tile) { return tile + 32; }
+constexpr int kMmaMaxStages = 4;
+constexpr int kMmaBarrierBytes = 256;  // empty[4] and full[P][4], P <= 7
+constexpr int kMmaSmemBudget = 110 * 1024;  // two blocks share an SM's 228 KB
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One bulk asynchronous copy of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_s8(uint32_t (&c)[4], const uint4& a,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// Transpose 4x4 bytes: byte j of w[i] becomes byte i of col[j].
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4],
+                                             uint32_t (&col)[4]) {
+  const uint32_t x0 = prmt(w[0], w[1], 0x5140), x1 = prmt(w[0], w[1], 0x7362);
+  const uint32_t y0 = prmt(w[2], w[3], 0x5140), y1 = prmt(w[2], w[3], 0x7362);
+  col[0] = prmt(x0, y0, 0x5410);
+  col[1] = prmt(x0, y0, 0x7632);
+  col[2] = prmt(x1, y1, 0x5410);
+  col[3] = prmt(x1, y1, 0x7632);
+}
+
+// The A fragment (mma m16n8k32, s8, row-major) of lane `lane` for m-tile mt
+// and k-tile kt, masked to the low bits and zero past R and C.  Lane (g, t)
+// holds rows g and g+8 at logical k 4t..4t+3 (a.x, a.y) and 16+4t.. (a.z,
+// a.w).  Logical k 4t+i of a half is physical input row 4i+t, the order in
+// which the B fragments are read (mma_route_tile).
+__device__ __forceinline__ uint4 mma_a_fragment(const int8_t* __restrict__ mbits,
+                                                int R, int C, int mt, int kt,
+                                                int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t reg[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = mt * 16 + g + (q & 1) * 8;
+    uint32_t v = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = kt * 32 + (q >> 1) * 16 + 4 * i + t;
+      if (r < R && c < C)
+        v |= static_cast<uint32_t>(mbits[(long long)r * C + c] & 1) << (8 * i);
+    }
+    reg[q] = v;
+  }
+  return make_uint4(reg[0], reg[1], reg[2], reg[3]);
+}
+
+// (M[R, C] @ bits[C, B]) & 1 on int8 tensor cores, for R <= 64, C <= 128,
+// B a multiple of 16 and 16-byte aligned bits and out.
+//   Persistent blocks walk tiles of kMmaTile columns.  Warp 8 is the
+//   producer: it keeps `stages` tiles in flight in a ring in shared memory,
+//   one bulk copy per input row segment, each stage's completion counted on
+//   its `full` mbarrier; the consumer warps release a stage on its `empty`
+//   mbarrier.  Warps 0-7 are consumers: warp w takes columns 32w..32w+31 of
+//   each tile.  Lane (g, t) reads input rows 4i+t (and 16+4i+t), i = 0..3,
+//   at columns 4g..4g+3 (four 32-bit shared loads), and transposes the 4x4
+//   bytes, so that byte i of word j is row 4i+t at column 4g+j: its B
+//   fragment for n-tile j.  Columns are independent, so n-tile j, column g
+//   is physical column 4g+j; rows are summed, so reading them in the order
+//   4i+t only asks the A fragments for the same order.  Then the
+//   accumulators of lane (g, t) hold rows g and g+8 at physical columns
+//   8t..8t+7: eight consecutive bytes, packed with prmt, masked to the low
+//   bit and stored as one 8-byte store a row.
+//   Exact for any int8: A is masked to 0/1, so each int32 sum is a sum of
+//   input bytes (at most 128 of them) and cannot overflow, and its low bit
+//   is the parity of their low bits.  B needs no mask for that reason.
+template <int MT, int KT, int TILE, int P>
+__global__ void __launch_bounds__((kMmaConsumerWarps + P) * 32, kMmaBlocksPerSm)
+gf2_matmul_mma_kernel(const int8_t* __restrict__ mbits,
+                      const int8_t* __restrict__ bits, int8_t* __restrict__ out,
+                      int R, int C, long long B, int stages) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* empty = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = empty + kMmaMaxStages;  // [P][kMmaMaxStages]
+  uint4* afrag = reinterpret_cast<uint4*>(smem + kMmaBarrierBytes);
+  uint8_t* ring = smem + kMmaBarrierBytes + MT * KT * 32 * sizeof(uint4);
+  constexpr int kTile = TILE, kPitch = mma_pitch(TILE);
+  constexpr int kStageBytes = KT * 32 * kPitch;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long tiles = (B + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      for (int p = 0; p < P; ++p) mbar_init(&full[p * kMmaMaxStages + s], 1);
+      mbar_init(&empty[s], kMmaConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kMmaConsumerWarps) {  // producer p: rows 32p + lane, step 32P
+    const int p = warp - kMmaConsumerWarps;
+    int s = 0;
+    uint32_t phase = 0;  // of the ring's current lap; lap 0 needs no release
+    bool lap0 = true;
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      if (!lap0) mbar_wait(&empty[s], phase ^ 1);
+      const long long col0 = tile * kTile;
+      const uint32_t ncols =
+          static_cast<uint32_t>(B - col0 < kTile ? B - col0 : kTile);
+      uint64_t* bar = &full[p * kMmaMaxStages + s];
+      if (lane == 0) {
+        int rows = 0;
+        for (int r0 = 32 * p; r0 < C; r0 += 32 * P)
+          rows += C - r0 < 32 ? C - r0 : 32;
+        mbar_arrive_expect_tx(bar, ncols * rows);
+      }
+      __syncwarp();
+      uint8_t* stage = ring + s * kStageBytes;
+      for (int r = 32 * p + lane; r < C; r += 32 * P)
+        bulk_load(stage + r * kPitch, bits + (long long)r * B + col0, ncols,
+                  bar);
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+        lap0 = false;
+      }
+    }
+    return;
+  }
+
+  // consumers: the A fragments go to shared memory while the first stages load
+  for (int i = threadIdx.x; i < MT * KT * 32; i += kMmaConsumerWarps * 32)
+    afrag[i] = mma_a_fragment(mbits, R, C, i / 32 / KT, i / 32 % KT, i % 32);
+  asm volatile("bar.sync 1, %0;" ::"n"(kMmaConsumerWarps * 32) : "memory");
+
+  const int g = lane >> 2, t = lane & 3;
+  int s = 0;
+  uint32_t phase = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) mbar_wait(&full[p * kMmaMaxStages + s], phase);
+#pragma unroll 1
+    for (int pass = 0; pass < kTile / kMmaSpan; ++pass) {
+      const uint8_t* base =
+          ring + s * kStageBytes + pass * kMmaSpan + warp * 32 + 4 * g;
+      uint32_t acc[MT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0;
+
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        uint32_t b[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            w[i] = *reinterpret_cast<const uint32_t*>(
+                base + (kt * 32 + h * 16 + 4 * i + t) * kPitch);
+          transpose4x4(w, b[h]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint4 a = afrag[(mt * KT + kt) * 32 + lane];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_s8(acc[mt][j], a, b[0][j], b[1][j]);
+        }
+      }
+      if (pass == kTile / kMmaSpan - 1) {  // the stage is read: release it
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+
+      const long long col =
+          tile * kTile + pass * kMmaSpan + warp * 32 + 8 * t;
+      if (col < B) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // rows g (c0, c1) and g+8 (c2, c3)
+            const int r = mt * 16 + g + 8 * h;
+            if (r < R) {
+              const uint32_t lo =
+                  prmt(prmt(acc[mt][0][2 * h], acc[mt][1][2 * h], 0x0040),
+                       prmt(acc[mt][2][2 * h], acc[mt][3][2 * h], 0x0040),
+                       0x5410) & 0x01010101u;
+              const uint32_t hi = prmt(
+                  prmt(acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1], 0x0040),
+                  prmt(acc[mt][2][2 * h + 1], acc[mt][3][2 * h + 1], 0x0040),
+                  0x5410) & 0x01010101u;
+              *reinterpret_cast<uint2*>(out + (long long)r * B + col) =
+                  make_uint2(lo, hi);
+            }
+          }
+        }
+      }
+    }
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// ------------------------------------------------------- K2, popc route ----
 
 template <int MAXW, int COLS, bool VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -508,6 +774,79 @@ int launch_w8(int route, const int8_t* mbits, const uint8_t* data, uint8_t* out,
                                 data, out, k, out_rows, B);
 }
 
+// K2's routes (ops/cuda_gf2.py K2_ROUTES names them): the int8 tensor-core
+// kernel, the popc kernel with 4- or 1-byte accesses.
+enum K2Route { kMma = 0, kK2PopcV4 = 1, kK2PopcB1 = 2 };
+
+int k2_popc_route(const int8_t* bits, const int8_t* out, long long B) {
+  return B % 4 == 0 && aligned4(bits) && aligned4(out) ? kK2PopcV4 : kK2PopcB1;
+}
+
+int k2_route(const int8_t* bits, const int8_t* out, int R, int C,
+             long long B) {
+  if (R >= 1 && R <= kMmaMaxR && C >= 1 && C <= kMmaMaxC && B % 16 == 0 &&
+      aligned16(bits) && aligned16(out))
+    return kMma;
+  return k2_popc_route(bits, out, B);
+}
+
+// Shared memory of the mma kernel: barriers, A fragments, `stages` stages.
+size_t mma_smem(int mt, int kt, int tile, int stages) {
+  return kMmaBarrierBytes + (size_t)mt * kt * 32 * sizeof(uint4) +
+         (size_t)stages * kt * 32 * mma_pitch(tile);
+}
+
+template <int MT, int KT, int TILE = mma_tile(KT), int P = kMmaProducerWarps>
+int launch_mma(cudaStream_t stream, const int8_t* mbits, const int8_t* bits,
+               int8_t* out, int R, int C, long long B) {
+  int stages = kMmaMaxStages;
+  while (stages > 2 && mma_smem(MT, KT, TILE, stages) > kMmaSmemBudget)
+    --stages;
+  const size_t smem = mma_smem(MT, KT, TILE, stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      gf2_matmul_mma_kernel<MT, KT, TILE, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (B + TILE - 1) / TILE;
+  const long long cap = (long long)sm_count() * kMmaBlocksPerSm;
+  const int grid = static_cast<int>(tiles < cap ? tiles : cap);
+  gf2_matmul_mma_kernel<MT, KT, TILE, P>
+      <<<grid, (kMmaConsumerWarps + P) * 32, smem, stream>>>(
+      mbits, bits, out, R, C, B, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MT>
+int launch_mma_kt(int kt, cudaStream_t stream, const int8_t* mbits,
+                  const int8_t* bits, int8_t* out, int R, int C, long long B) {
+  switch (kt) {
+    case 1: return launch_mma<MT, 1>(stream, mbits, bits, out, R, C, B);
+    case 2: return launch_mma<MT, 2>(stream, mbits, bits, out, R, C, B);
+    case 3: return launch_mma<MT, 3>(stream, mbits, bits, out, R, C, B);
+    default: return launch_mma<MT, 4>(stream, mbits, bits, out, R, C, B);
+  }
+}
+
+int launch_k2(int route, const int8_t* mbits, const int8_t* bits, int8_t* out,
+              int R, int C, long long B, cudaStream_t stream) {
+  const int W = (C + 63) / 64;
+  const size_t smem = (size_t)R * W * sizeof(uint64_t);
+  if (R < 1 || C < 1 || B < 1 || W > CTT_MAX_MASK_WORDS ||
+      smem > CTT_MAX_MASK_BYTES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kMma) {
+    const int mt = (R + 15) / 16, kt = (C + 31) / 32;
+    switch (mt) {
+      case 1: return launch_mma_kt<1>(kt, stream, mbits, bits, out, R, C, B);
+      case 2: return launch_mma_kt<2>(kt, stream, mbits, bits, out, R, C, B);
+      case 3: return launch_mma_kt<3>(kt, stream, mbits, bits, out, R, C, B);
+      default: return launch_mma_kt<4>(kt, stream, mbits, bits, out, R, C, B);
+    }
+  }
+  return dispatch<Gf2Matmul>(W, route == kK2PopcV4, B, smem, stream, mbits,
+                             bits, out, R, C, B);
+}
+
 }  // namespace
 
 extern "C" int ctt_apply_bytes_w8_route(const int8_t* mbits,
@@ -532,18 +871,24 @@ extern "C" int ctt_apply_bytes_w8_popc(const int8_t* mbits,
                    out_rows, B, static_cast<cudaStream_t>(stream));
 }
 
+extern "C" int ctt_gf2_matmul_route(const int8_t* mbits, const int8_t* bits,
+                                    const int8_t* out, int R, int C,
+                                    long long B) {
+  return k2_route(bits, out, R, C, B);
+}
+
 extern "C" int ctt_gf2_matmul(const int8_t* mbits, const int8_t* bits,
                               int8_t* out, int R, int C, long long B,
                               void* stream) {
-  const int W = (C + 63) / 64;
-  const size_t smem = (size_t)R * W * sizeof(uint64_t);
-  if (R < 1 || C < 1 || B < 1 || W > CTT_MAX_MASK_WORDS ||
-      smem > CTT_MAX_MASK_BYTES)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = B % 4 == 0 && aligned4(bits) && aligned4(out);
-  return dispatch<Gf2Matmul>(W, vec, B, smem,
-                             static_cast<cudaStream_t>(stream), mbits, bits,
-                             out, R, C, B);
+  return launch_k2(k2_route(bits, out, R, C, B), mbits, bits, out, R, C, B,
+                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ctt_gf2_matmul_popc(const int8_t* mbits, const int8_t* bits,
+                                   int8_t* out, int R, int C, long long B,
+                                   void* stream) {
+  return launch_k2(k2_popc_route(bits, out, B), mbits, bits, out, R, C, B,
+                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ctt_error_string(int code) {

@@ -10,7 +10,9 @@
 // only on the low bit of each operand, so taking `& 1` of both operands first
 // is exact for every int8 input, negative ones included, and equals the int32
 // accumulate-then-`& 1` of the Pallas kernels this replaces.  apply_bytes_w8's
-// xor route reads the bit-matrix the same way (low bits only).
+// xor route reads the bit-matrix the same way (low bits only); gf2_matmul's
+// mma route masks the bit-matrix and sums input bytes in int32, whose low bit
+// is the same parity.
 #pragma once
 
 #include <cstdint>
@@ -43,10 +45,21 @@ int ctt_apply_bytes_w8_popc(const int8_t* mbits, const uint8_t* data,
                             uint8_t* out, int k, int out_rows, long long B,
                             void* stream);
 
-// (M[R, C] @ bits[C, B]) & 1 on int8 operands -> [R, B] int8 0/1.
-// Returns a cudaError_t value, 0 on success.
+// (M[R, C] @ bits[C, B]) & 1 on int8 operands -> [R, B] int8 0/1, on the
+// route ctt_gf2_matmul_route names.  Returns a cudaError_t value, 0 on success.
 int ctt_gf2_matmul(const int8_t* mbits, const int8_t* bits, int8_t* out,
                    int R, int C, long long B, void* stream);
+
+// The route ctt_gf2_matmul takes for these operands: 0 mma (R <= 64,
+// C <= 128, B and the bits and out addresses multiples of 16), else 1 popc
+// with 4-byte accesses or 2 popc with byte accesses.
+int ctt_gf2_matmul_route(const int8_t* mbits, const int8_t* bits,
+                         const int8_t* out, int R, int C, long long B);
+
+// ctt_gf2_matmul on the popc route whatever the shape, so that the two
+// routes can be compared on the same operands.
+int ctt_gf2_matmul_popc(const int8_t* mbits, const int8_t* bits, int8_t* out,
+                        int R, int C, long long B, void* stream);
 
 const char* ctt_error_string(int code);
 

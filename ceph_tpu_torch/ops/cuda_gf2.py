@@ -10,13 +10,18 @@ about it are noted there):
   popcount-free XOR kernel for k <= 16 and out <= 4 on 16-byte aligned rows,
   popcounts for any other shape;
 * ``gf2_matmul``      <- ``pallas_gf2_matmul``: (M[R, C] @ bits[C, B]) & 1 on
-  int8 operands -> [R, B] int8.
+  int8 operands -> [R, B] int8, on one of two routes chosen by shape and
+  alignment (``gf2_matmul_route``): int8 tensor cores fed by bulk
+  asynchronous copies through a ring in shared memory for R <= 64 and
+  C <= 128 on 16-byte aligned rows, popcounts for any other shape.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what the
 kernel does not take (the same checks on every device).  On a CUDA tensor it
 launches the kernel on PyTorch's current stream and counts the launch in its
-``launches`` attribute (``apply_bytes_w8.routes`` also counts them by route);
-a launch error raises, nothing falls back.  On a CPU
+``launches`` attribute (``routes`` also counts them by route); a launch error
+raises, nothing falls back or retries on the other route.
+``apply_bytes_w8_popc`` and ``gf2_matmul_popc`` force the popcount route, so
+that the two routes can be timed on the same operands.  On a CPU
 tensor it returns the plain PyTorch version, which exists for the CPU and for
 holding the kernel to on the card.  Neither takes a column tile: any B >= 1.
 """
@@ -39,6 +44,14 @@ MAX_MASK_WORDS = 32
 #: the popcount kernel with 4-byte or byte accesses
 K1_ROUTES = ("xor", "popc.v4", "popc.b1")
 
+#: K2's routes, by the code ctt_gf2_matmul_route returns: the int8
+#: tensor-core kernel, the popcount kernel with 4-byte or byte accesses
+K2_ROUTES = ("mma", "popc.v4", "popc.b1")
+
+#: the widest bit-matrix the mma route takes (csrc/gf2.cu kMmaMaxR, kMmaMaxC)
+MMA_MAX_R = 64
+MMA_MAX_C = 128
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
@@ -50,8 +63,11 @@ def _lib() -> ctypes.CDLL:
         fn.restype = i
     lib.ctt_apply_bytes_w8_route.argtypes = [p, p, p, i, i, ll]
     lib.ctt_apply_bytes_w8_route.restype = i
-    lib.ctt_gf2_matmul.argtypes = [p, p, p, i, i, ll, p]
-    lib.ctt_gf2_matmul.restype = i
+    for fn in (lib.ctt_gf2_matmul, lib.ctt_gf2_matmul_popc):
+        fn.argtypes = [p, p, p, i, i, ll, p]
+        fn.restype = i
+    lib.ctt_gf2_matmul_route.argtypes = [p, p, p, i, i, ll]
+    lib.ctt_gf2_matmul_route.restype = i
     lib.ctt_error_string.argtypes = [i]
     lib.ctt_error_string.restype = ctypes.c_char_p
     return lib
@@ -187,23 +203,64 @@ def apply_bytes_w8_popc(mbits: torch.Tensor, data: torch.Tensor) -> torch.Tensor
     return _launch_w8(mbits, data, popc=True)
 
 
-def gf2_matmul(mbits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """(M[R, C] @ bits[C, B]) & 1 on int8 operands -> [R, B] int8 0/1."""
-    _check_operands("gf2_matmul", mbits, bits, torch.int8, 1)
-    if bits.device.type == "cpu":
-        return gf2_matmul_plain(mbits, bits)
+def gf2_matmul_route(R: int, C: int, B: int, bits_addr: int,
+                     out_addr: int) -> str:
+    """The route ctt_gf2_matmul takes for an [R, C] bit-matrix, B columns and
+    these operand addresses (csrc/gf2.cu k2_route): the int8 tensor-core
+    kernel for R <= 64 and C <= 128 where B and the input and output
+    addresses are multiples of 16; else the popcount kernel, with 4-byte
+    accesses where B and those addresses are multiples of 4."""
+    if R <= MMA_MAX_R and C <= MMA_MAX_C and all(
+            n % 16 == 0 for n in (B, bits_addr, out_addr)):
+        return "mma"
+    return _k2_popc_route(B, bits_addr, out_addr)
+
+
+def _k2_popc_route(B: int, bits_addr: int, out_addr: int) -> str:
+    vec = all(n % 4 == 0 for n in (B, bits_addr, out_addr))
+    return "popc.v4" if vec else "popc.b1"
+
+
+def _launch_k2(mbits: torch.Tensor, bits: torch.Tensor,
+               popc: bool) -> torch.Tensor:
     R, C = mbits.shape
     B = bits.shape[1]
     out = torch.empty((R, B), dtype=torch.int8, device=bits.device)
+    if popc:
+        entry = _lib().ctt_gf2_matmul_popc
+        route = _k2_popc_route(B, bits.data_ptr(), out.data_ptr())
+    else:
+        entry = _lib().ctt_gf2_matmul
+        route = gf2_matmul_route(R, C, B, bits.data_ptr(), out.data_ptr())
     with torch.cuda.device(bits.device):
-        rc = _lib().ctt_gf2_matmul(mbits.data_ptr(), bits.data_ptr(),
-                                   out.data_ptr(), R, C, B,
-                                   _stream(bits.device))
+        rc = entry(mbits.data_ptr(), bits.data_ptr(), out.data_ptr(), R, C, B,
+                   _stream(bits.device))
     _raise_on(rc, "gf2_matmul")
     gf2_matmul.launches += 1
+    gf2_matmul.routes[route] += 1
     return out
+
+
+def gf2_matmul(mbits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """(M[R, C] @ bits[C, B]) & 1 on int8 operands -> [R, B] int8 0/1, on the
+    route gf2_matmul_route names."""
+    _check_operands("gf2_matmul", mbits, bits, torch.int8, 1)
+    if bits.device.type == "cpu":
+        return gf2_matmul_plain(mbits, bits)
+    return _launch_k2(mbits, bits, popc=False)
+
+
+def gf2_matmul_popc(mbits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """gf2_matmul on the popcount route whatever the shape: the first port's
+    kernel, kept callable so that the two routes can be held against each
+    other on the card.  On a CPU tensor, the plain version."""
+    _check_operands("gf2_matmul", mbits, bits, torch.int8, 1)
+    if bits.device.type == "cpu":
+        return gf2_matmul_plain(mbits, bits)
+    return _launch_k2(mbits, bits, popc=True)
 
 
 apply_bytes_w8.launches = 0
 apply_bytes_w8.routes = dict.fromkeys(K1_ROUTES, 0)
 gf2_matmul.launches = 0
+gf2_matmul.routes = dict.fromkeys(K2_ROUTES, 0)

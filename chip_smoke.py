@@ -14,19 +14,21 @@ Phases; any failure exits nonzero before the result line is printed:
             L2 flushed before each launch (and the host's enqueue kept out
             of the timed window), beside the bound computed from the
             shapes and, for gf2_matmul, an fp16 torch.matmul of the same 0/1
-            operands as a yardstick.  apply_bytes_w8 runs every shape on the
+            operands as a yardstick.  Each kernel runs every shape on the
             route its wrapper takes and on the popc route ("path" in each
-            line); at the main shape and at 2 MiB the two are timed in turns
-            (wrapper's, popc, popc, wrapper's), and a "floor" line times a
-            device copy of the same number of bytes, same flush and events.
+            line); at the main path's shapes and at 2 MiB the two are timed
+            in turns (wrapper's, popc, popc, wrapper's), and a "floor" line
+            times a device copy of the same number of bytes, same flush and
+            events.
 3. main     launch counts set to 0, then the port's entry points: the
             benchmark CLI (plugin=cuda reed_sol_van k=8 m=3, 4 MiB objects,
             encode, then decode with 3 random erasures; the CLI verifies
             recovered content), 4 MiB objects under plugin=cuda against the
             port's CPU plugin=jerasure (reed_sol_van and cauchy_good k=8 m=3),
             and the archived plugin=tpu corpus replayed under plugin=cuda.
-            Every kernel must have launched in this phase, and every
-            apply_bytes_w8 launch must have taken the xor route.
+            Every kernel must have launched in this phase, every
+            apply_bytes_w8 launch must have taken the xor route and every
+            gf2_matmul launch the mma route.
 4. split    host prepare / host->device / kernel call / device->host of
             one 4 MiB encode (the codec API takes host bytes), and the
             device's busy share over back-to-back encodes from torch.profiler.
@@ -56,6 +58,9 @@ TIMING_REPS = 20
 PLAIN_REPS = 5
 FLUSH_BYTES = 256 << 20      # > the 50 MB L2
 HOST_LEAD_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz
+LOST = (1, 5, 9)             # phase 3's 3-erasure decode
+# the chunks a k=8 m=3 packet-layout decode reads when LOST are lost
+DECODE_CHOSEN = tuple(c for c in range(11) if c not in LOST)[:8]
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and int8 tensor ops/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -153,18 +158,24 @@ def _tensor(a: np.ndarray, device):
 
 def _bitmatrices(device):
     """The main path's bit-matrices: reed_sol_van k=8 m=3 encode, a 3-erasure
-    decode, cauchy_good k=8 m=3 (packet layout), reed_sol_van k=8 m=3 w=16."""
+    decode, cauchy_good k=8 m=3 (packet layout) and the [64, 64] decode of
+    phase 3's erasures {1, 5, 9}, reed_sol_van k=8 m=3 w=16."""
     from ceph_tpu_torch.ec.matrices import (cauchy_good_matrix,
+                                            invert_bitmatrix,
                                             matrix_to_bitmatrix,
                                             vandermonde_coding_matrix)
 
     codec = _codec("cuda", device, technique="reed_sol_van", k=8, m=3)
     chosen, inv = codec.decode_selection({0, 4, 7}, set(range(11)) - {0, 4, 7})
     check(chosen == (1, 2, 3, 5, 6, 8, 9, 10), f"decode selection {chosen}")
+    cauchy = matrix_to_bitmatrix(cauchy_good_matrix(8, 3, 8), 8)
+    full = np.vstack([np.eye(64, dtype=np.uint8), cauchy])
     return {
         "rs_encode": matrix_to_bitmatrix(vandermonde_coding_matrix(8, 3, 8), 8),
         "rs_decode3": matrix_to_bitmatrix(inv[[0, 4, 7]], 8),
-        "cauchy_good": matrix_to_bitmatrix(cauchy_good_matrix(8, 3, 8), 8),
+        "cauchy_good": cauchy,
+        "cauchy_decode3": invert_bitmatrix(np.vstack(
+            [full[c * 8:(c + 1) * 8] for c in DECODE_CHOSEN])),
         "rs_w16": matrix_to_bitmatrix(vandermonde_coding_matrix(8, 3, 16), 16),
     }
 
@@ -202,55 +213,66 @@ def phase_kernels(device):
             rows[name] = dict(line)
         sync(device)
 
-    # K1: w=8 byte layout.  Every shape runs on the route the wrapper takes
-    # for it and on the popc route (the first port's kernel); the timed shapes
-    # time the two in turns (wrapper's, popc, popc, wrapper's) and a device
-    # copy of the same number of bytes as a floor.
-    def k1(bm, data, label, report=False, turns=False):
-        k, B = data.shape
+    # Both kernels have two routes.  Every shape runs on the route the
+    # wrapper takes for it and on the popc route (the first port's kernel);
+    # the timed shapes time the two in turns (wrapper's, popc, popc,
+    # wrapper's) and a device copy of the kernel's bytes as a floor.
+    routed = {"apply_bytes_w8": (cuda_gf2.apply_bytes_w8,
+                                 cuda_gf2.apply_bytes_w8_popc,
+                                 cuda_gf2.apply_bytes_w8_plain),
+              "gf2_matmul": (cuda_gf2.gf2_matmul, cuda_gf2.gf2_matmul_popc,
+                             cuda_gf2.gf2_matmul_plain)}
+
+    def both_routes(name, bm, x, label, in_bytes, out_bytes, report=False,
+                    turns=False, library=None):
+        wrapper, popc, plain = routed[name]
+        B = x.shape[1]
         R, C = bm.shape
         routes = {}
-        for fn in (cuda_gf2.apply_bytes_w8, cuda_gf2.apply_bytes_w8_popc):
-            before = dict(cuda_gf2.apply_bytes_w8.routes)
-            got = fn(bm, data)
-            route, = (r for r, n in cuda_gf2.apply_bytes_w8.routes.items()
-                      if n != before[r])
+        for fn in (wrapper, popc):
+            before = dict(wrapper.routes)
+            got = fn(bm, x)
+            route, = (r for r, n in wrapper.routes.items() if n != before[r])
             routes[route] = (fn, got)
-        want = cuda_gf2.apply_bytes_w8_plain(bm, data)
+        want = plain(bm, x)
         sync(device)
-        b_ms, b_by = bound(R, C, B, k * B, R // 8 * B)
+        b_ms, b_by = bound(R, C, B, in_bytes, out_bytes)
         order = list(routes)
         if turns:
             order = order + order[::-1]
         times = {r: [] for r in routes}
         for r in order:
-            times[r].append(time_ms(lambda: routes[r][0](bm, data),
-                                    TIMING_REPS))
-        plain_ms = time_ms(lambda: cuda_gf2.apply_bytes_w8_plain(bm, data),
-                           PLAIN_REPS)
+            times[r].append(time_ms(lambda: routes[r][0](bm, x), TIMING_REPS))
+        plain_ms = time_ms(lambda: plain(bm, x), PLAIN_REPS)
+        library_ms = time_ms(library, TIMING_REPS) if library else None
         for r, (_, got) in routes.items():
             check(got.shape == want.shape and got.dtype == want.dtype,
-                  f"apply_bytes_w8 {r} {label}: {tuple(got.shape)}/{got.dtype}")
+                  f"{name} {r} {label}: {tuple(got.shape)}/{got.dtype}")
             err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-            check(err == 0, f"apply_bytes_w8 {r} {label}: max_abs_err {err}")
-            line = {"kernel": "apply_bytes_w8", "path": r, "shape": label,
+            check(err == 0, f"{name} {r} {label}: max_abs_err {err}")
+            line = {"kernel": name, "path": r, "shape": label,
                     "max_abs_err": err, "ms": statistics.mean(times[r]),
                     "ms_turns": times[r], "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": library_ms}
             print("kernel " + json.dumps(line))
-            if report and r == order[0]:
-                rows["apply_bytes_w8"] = dict(line)
-            elif report:
-                rows["apply_bytes_w8.popc"] = dict(line)
+            if report:
+                rows[name if r == order[0] else name + ".popc"] = dict(line)
         if turns:
-            n = (k + R // 8) * B // 2  # read n and write n: K1's bytes
+            n = (in_bytes + out_bytes) // 2  # read n and write n: the kernel's bytes
             src = torch.empty(n, dtype=torch.uint8, device=device)
             dst = torch.empty_like(src)
             print("floor " + json.dumps({
-                "shape": label, "copy_bytes": n,
+                "kernel": name, "shape": label, "copy_bytes": n,
                 "ms": time_ms(lambda: dst.copy_(src), TIMING_REPS)}))
             del src, dst
         sync(device)
+
+    # K1: w=8 byte layout
+    def k1(bm, data, label, **kw):
+        k, B = data.shape
+        both_routes("apply_bytes_w8", bm, data, label, k * B,
+                    bm.shape[0] // 8 * B, **kw)
 
     bm_enc = _tensor(bms["rs_encode"].astype(np.int8), device)
     for mat, B, report in (("rs_encode", main_cols, True),
@@ -271,9 +293,15 @@ def phase_kernels(device):
         data = _tensor(rng.integers(0, 256, (k, B), dtype=np.uint8), device)
         k1(bm, data, f"random [{m * 8},{k * 8}]x[{k},{B}]")
 
-    # K2: int8 bit-planes
-    k2, k2p = cuda_gf2.gf2_matmul, cuda_gf2.gf2_matmul_plain
+    # K2: int8 bit-planes.  The main path's three launches (cauchy_good
+    # encode, its 3-erasure decode, the parity re-encode) and 2 MiB of
+    # columns, timed, beside an fp16 torch.matmul of the same 0/1 operands.
+    def k2(bm, bits, label, **kw):
+        (R, C), B = bm.shape, bits.shape[1]
+        both_routes("gf2_matmul", bm, bits, label, C * B, R * B, **kw)
+
     for mat, B, report in (("cauchy_good", main_cols, True),
+                           ("cauchy_decode3", main_cols, False),
                            ("cauchy_good", BATCH_COLS, False),
                            ("rs_w16", BATCH_COLS, False)):
         bm_np = bms[mat].astype(np.int8)
@@ -281,14 +309,20 @@ def phase_kernels(device):
         bm = _tensor(bm_np, device)
         bits = _tensor(rng.integers(0, 2, (C, B), dtype=np.int8), device)
         bm_h, bits_h = bm.half(), bits.half()
-        compare("gf2_matmul", k2, k2p, (bm, bits), R, C, B, C * B, R * B,
-                f"{mat} [{R},{C}]x[{C},{B}]",
-                library=lambda: torch.matmul(bm_h, bits_h), report=report)
-    for R, C, B in ((24, 64, 1001), (5, 200, 300), (7, 600, 77)):
+        k2(bm, bits, f"{mat} [{R},{C}]x[{C},{B}]", report=report, turns=True,
+           library=lambda: torch.matmul(bm_h, bits_h))
+        del bits, bits_h
+    # int8 negatives, zero-padded R and C, ragged B, misaligned bases, and
+    # shapes past the mma route's limits
+    for R, C, B, offset in ((24, 64, 1001, 0), (64, 64, 32768 + 16, 1),
+                            (48, 128, 4112, 16), (5, 40, 1040, 0),
+                            (17, 100, 304, 0), (5, 200, 300, 0),
+                            (7, 600, 77, 0)):
         M = _tensor(rng.integers(-128, 128, (R, C), dtype=np.int8), device)
-        bits = _tensor(rng.integers(-128, 128, (C, B), dtype=np.int8), device)
-        compare("gf2_matmul", k2, k2p, (M, bits), R, C, B, C * B, R * B,
-                f"int8 [{R},{C}]x[{C},{B}]")
+        flat = _tensor(rng.integers(-128, 128, C * B + offset, dtype=np.int8),
+                       device)
+        k2(M, flat[offset:].view(C, B),
+           f"int8 [{R},{C}]x[{C},{B}]" + (f" base+{offset}" if offset else ""))
     return rows
 
 
@@ -350,6 +384,7 @@ def phase_main(device):
     cuda_gf2.apply_bytes_w8.launches = 0
     cuda_gf2.apply_bytes_w8.routes = dict.fromkeys(cuda_gf2.K1_ROUTES, 0)
     cuda_gf2.gf2_matmul.launches = 0
+    cuda_gf2.gf2_matmul.routes = dict.fromkeys(cuda_gf2.K2_ROUTES, 0)
 
     base = ["--plugin", "cuda", "--device", str(device), "-P",
             "technique=reed_sol_van", "-P", "k=8", "-P", "m=3",
@@ -368,7 +403,7 @@ def phase_main(device):
             check(np.array_equal(ec[c], ej[c]),
                   f"{profile['technique']} chunk {c}: plugin=cuda differs "
                   "from the CPU plugin=jerasure")
-        lost = {1, 5, 9}
+        lost = set(LOST)
         out = cuda.decode(lost, {c: ec[c] for c in ec if c not in lost},
                           len(ec[0]))
         for c in lost:
@@ -381,13 +416,15 @@ def phase_main(device):
     sync(device)
     counts = {"apply_bytes_w8": cuda_gf2.apply_bytes_w8.launches,
               "gf2_matmul": cuda_gf2.gf2_matmul.launches}
-    routes = dict(cuda_gf2.apply_bytes_w8.routes)
+    routes = {"apply_bytes_w8": dict(cuda_gf2.apply_bytes_w8.routes),
+              "gf2_matmul": dict(cuda_gf2.gf2_matmul.routes)}
     print(f"main path launches: {json.dumps(counts)}")
-    print(f"main path apply_bytes_w8 routes: {json.dumps(routes)}")
+    print(f"main path routes: {json.dumps(routes)}")
     for name, n in counts.items():
         check(n > 0, f"kernel {name} never launched on the main path")
-    check(routes["xor"] == counts["apply_bytes_w8"],
-          f"apply_bytes_w8 left the xor route on the main path: {routes}")
+    for name, route in (("apply_bytes_w8", "xor"), ("gf2_matmul", "mma")):
+        check(routes[name][route] == counts[name],
+              f"{name} left the {route} route on the main path: {routes[name]}")
     return counts, routes
 
 
@@ -486,9 +523,10 @@ def main() -> int:
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "shape": row["shape"]})
-        k1_row = kernels[0]
-        k1_row.update(path=rows["apply_bytes_w8"]["path"], paths=routes,
-                      popc_ms=rows["apply_bytes_w8.popc"]["ms"])
+        for row in kernels:
+            name = row["name"]
+            row.update(path=rows[name]["path"], paths=routes[name],
+                       popc_ms=rows[name + ".popc"]["ms"])
         torch.cuda.synchronize()
     except Exception:
         traceback.print_exc()

@@ -75,13 +75,45 @@ def test_apply_bytes_w8_route_mirror_matches_the_entry(card):
 
 
 def test_gf2_matmul_matches_plain(card):
+    """Both K2 routes, the wrapper's choice and the popc route, against the
+    plain version: int8 operands with negatives, the main path's shapes,
+    zero-padded R and C, ragged and misaligned B, and shapes past the mma
+    route's limits."""
     rng = np.random.default_rng(6)
-    for R, C, B in ((24, 64, 4096), (48, 128, 1001), (5, 200, 300),
-                    (7, 600, 77)):
+    for R, C, B in ((24, 64, 4096), (64, 64, 32768 + 16), (48, 128, 1001),
+                    (48, 128, 4112), (64, 128, 16), (5, 40, 1040),
+                    (17, 100, 300), (5, 200, 300), (7, 600, 77)):
         M = on(card, rng.integers(-128, 128, size=(R, C), dtype=np.int8))
-        bits = on(card, rng.integers(-128, 128, size=(C, B), dtype=np.int8))
-        assert torch.equal(cuda_gf2.gf2_matmul(M, bits),
-                           cuda_gf2.gf2_matmul_plain(M, bits))
+        flat = on(card, rng.integers(-128, 128, size=C * B + 16,
+                                     dtype=np.int8))
+        for bits in (flat[:C * B].view(C, B), flat[1:C * B + 1].view(C, B),
+                     flat[16:].view(C, B)):
+            want = cuda_gf2.gf2_matmul_plain(M, bits)
+            assert torch.equal(cuda_gf2.gf2_matmul(M, bits), want)
+            assert torch.equal(cuda_gf2.gf2_matmul_popc(M, bits), want)
+    torch.cuda.synchronize()
+
+
+def test_gf2_matmul_route_mirror_matches_the_entry(card):
+    """gf2_matmul_route names the route ctt_gf2_matmul takes, and the
+    wrapper counts the launch under it."""
+    lib = cuda_gf2._lib()
+    rng = np.random.default_rng(10)
+    for R, C in ((24, 64), (64, 64), (48, 128), (65, 64), (24, 129), (3, 7)):
+        M = on(card, rng.integers(0, 2, size=(R, C), dtype=np.int8))
+        for B, offset in ((4096, 0), (4096, 16), (4096, 4), (4096, 1),
+                          (1000, 0), (1002, 0)):
+            flat = on(card, rng.integers(0, 2, size=C * B + offset,
+                                         dtype=np.int8))
+            bits = flat[offset:].view(C, B)
+            before = dict(cuda_gf2.gf2_matmul.routes)
+            out = cuda_gf2.gf2_matmul(M, bits)
+            route = cuda_gf2.gf2_matmul_route(R, C, B, bits.data_ptr(),
+                                              out.data_ptr())
+            code = lib.ctt_gf2_matmul_route(M.data_ptr(), bits.data_ptr(),
+                                            out.data_ptr(), R, C, B)
+            assert cuda_gf2.K2_ROUTES[code] == route
+            assert cuda_gf2.gf2_matmul.routes[route] == before[route] + 1
     torch.cuda.synchronize()
 
 

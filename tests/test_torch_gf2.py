@@ -162,6 +162,137 @@ def test_xor_route_model_matches_plain(k, out_rows, B):
     assert np.array_equal(xor_route_model(bm, data), want)
 
 
+@pytest.mark.parametrize("R,C,B,addresses,route", [
+    (24, 64, 524288, (0, 256), "mma"),      # cauchy_good k=8 m=3 encode
+    (64, 64, 524288, (0, 256), "mma"),      # its 3-erasure decode
+    (48, 128, 2097152, (0, 256), "mma"),    # reed_sol_van k=8 m=3 w=16
+    (64, 128, 16, (0, 256), "mma"),         # the widest mma shape
+    (5, 40, 1040, (0, 256), "mma"),         # R and C zero-padded
+    (65, 64, 4096, (0, 256), "popc.v4"),    # R > 64
+    (24, 129, 4096, (0, 256), "popc.v4"),   # C > 128
+    (24, 64, 1000, (0, 256), "popc.v4"),    # B % 16 != 0
+    (24, 64, 4096, (4, 256), "popc.v4"),    # bits base + 4
+    (24, 64, 4096, (0, 264), "popc.v4"),    # out base + 8
+    (24, 64, 4096, (1, 256), "popc.b1"),    # bits base + 1
+    (24, 64, 1001, (0, 256), "popc.b1"),    # B % 4 != 0
+])
+def test_gf2_matmul_route_rule(R, C, B, addresses, route):
+    """The routing rule of csrc/gf2.cu k2_route, as the wrapper mirrors it:
+    shape and alignment alone decide, with no knob."""
+    assert cuda_gf2.gf2_matmul_route(R, C, B, *addresses) == route
+    assert route in cuda_gf2.K2_ROUTES
+
+
+MMA_TILES = (256, 512)  # csrc/gf2.cu mma_tile: columns a stage holds
+
+
+@pytest.mark.parametrize("tile", MMA_TILES)
+def test_mma_route_pitch_is_free_of_bank_conflicts(tile):
+    """The stage's row pitch (csrc/gf2.cu mma_pitch, the tile plus 32
+    bytes) is a multiple of 16, as bulk-copy destinations must be, and puts
+    the 32 words a warp loads at once (rows 4i+t, t = 0..3, columns 4g, g =
+    0..7, of one 32-column block) in 32 different banks."""
+    pitch = tile + 32
+    assert pitch % 16 == 0
+    for block in range(tile // 32):
+        for i in range(8):  # i = 0..3 and the upper half 16 + 4i
+            banks = {((4 * i + t) * pitch + block * 32 + 4 * g) // 4 % 32
+                     for t in range(4) for g in range(8)}
+            assert len(banks) == 32
+
+
+def mma_route_model(M: np.ndarray, bits: np.ndarray, rng) -> np.ndarray:
+    """numpy model of the mma route's index maps (csrc/gf2.cu
+    gf2_matmul_mma_kernel), lane by lane, for B a multiple of 16.  A warp
+    takes one 32-column block of a stage at a time; rows past C and columns
+    past B hold garbage, as shared memory does.  A fragments: lane (g, t),
+    register q, byte i is M[16mt + g + 8(q&1), 32kt + 16(q>>1) + 4i + t] & 1.
+    B fragments: four 32-bit loads of rows 4i+t (and 16+4i+t) at columns
+    4g..4g+3 of the lane's 32-column block, a 4x4 byte transpose by prmt,
+    word j for n-tile j.  mma m16n8k32 s8 by the PTX fragment tables, then
+    the epilogue's prmt packing of rows g and g+8 at columns 8t..8t+7."""
+    R, C = M.shape
+    B = bits.shape[1]
+    MT, KT = -(-R // 16), -(-C // 32)
+    nblk = -(-B // 32)
+    stage = rng.integers(-128, 128, size=(KT * 32, nblk * 32), dtype=np.int8)
+    stage[:C, :B] = bits
+    # word of lane g in a block: columns 4g..4g+3, little-endian
+    words = stage.view(np.uint8).reshape(KT * 32, nblk, 8, 4).copy()
+    words = words.view("<u4")[..., 0].astype(np.uint32)  # [row, blk, g]
+    Mp = np.zeros((MT * 16, KT * 32), np.int64)
+    Mp[:R, :C] = M.astype(np.int64) & 1
+    g_of, t_of = np.arange(32) // 4, np.arange(32) % 4
+    u8 = np.uint32(0xff)
+
+    acc = np.zeros((MT, 4, 32, 4, nblk), np.uint32)  # [mt, j, lane, q, blk]
+    for kt in range(KT):
+        # b[h][j][lane, blk]: byte i = row 32kt + 16h + 4i + t, column 4g + j
+        b = np.zeros((2, 4, 32, nblk), np.uint32)
+        for h in range(2):
+            w = [words[32 * kt + 16 * h + 4 * i + t_of, :, g_of] for i in range(4)]
+            x0, x1 = _prmt(w[0], w[1], 0x5140), _prmt(w[0], w[1], 0x7362)
+            y0, y1 = _prmt(w[2], w[3], 0x5140), _prmt(w[2], w[3], 0x7362)
+            b[h] = [_prmt(x0, y0, 0x5410), _prmt(x0, y0, 0x7632),
+                    _prmt(x1, y1, 0x5410), _prmt(x1, y1, 0x7632)]
+        for mt in range(MT):
+            a = np.zeros((32, 4), np.uint32)  # the kernel's A fragments
+            for q in range(4):
+                for i in range(4):
+                    a[:, q] |= (Mp[16 * mt + g_of + 8 * (q & 1),
+                                   32 * kt + 16 * (q >> 1) + 4 * i + t_of]
+                                .astype(np.uint32) << np.uint32(8 * i))
+            A = np.zeros((16, 32), np.int64)  # PTX table: a_q byte i
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for q in range(4):
+                    for i in range(4):
+                        A[g + 8 * (q & 1), 16 * (q >> 1) + 4 * t + i] = \
+                            (a[lane, q] >> np.uint32(8 * i)) & u8
+            for j in range(4):
+                Bm = np.zeros((nblk, 32, 8), np.int64)  # PTX table: b_h byte i
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for h in range(2):
+                        for i in range(4):
+                            v = (b[h, j, lane] >> np.uint32(8 * i)) & u8
+                            Bm[:, 16 * h + 4 * t + i, g] = v.astype(np.int8)
+                D = np.einsum("mk,zkn->zmn", A, Bm)
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for q in range(4):
+                        acc[mt, j, lane, q] += D[:, g + 8 * (q >> 1),
+                                                 2 * t + (q & 1)].astype(np.uint32)
+    out = np.zeros((MT * 16, nblk * 32), np.uint8)
+    for mt in range(MT):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for h in range(2):
+                half = [_prmt(_prmt(acc[mt, 0, lane, q], acc[mt, 1, lane, q], 0x0040),
+                              _prmt(acc[mt, 2, lane, q], acc[mt, 3, lane, q], 0x0040),
+                              0x5410) & np.uint32(0x01010101)
+                        for q in (2 * h, 2 * h + 1)]
+                row = np.stack(half, axis=-1).astype("<u4").view(np.uint8)
+                cols = np.arange(nblk)[:, None] * 32 + 8 * t + np.arange(8)
+                out[16 * mt + g + 8 * h, cols] = row
+    return out[:R, :B].view(np.int8)
+
+
+@pytest.mark.parametrize("R,C,B", [(24, 64, 528), (64, 64, 256),
+                                   (48, 128, 272), (5, 40, 48), (17, 100, 32)])
+def test_mma_route_model_matches_plain_and_pallas(R, C, B):
+    """The mma route's fragment maps, modelled in numpy, give the plain
+    version's and the Pallas kernel's bits for int8 operands, negatives
+    among them: a layout fault shows here, not on the card."""
+    rng = np.random.default_rng(R * 1000 + C + B)
+    M = rng.integers(-128, 128, size=(R, C), dtype=np.int8)
+    bits = rng.integers(-128, 128, size=(C, B), dtype=np.int8)
+    got = mma_route_model(M, bits, rng)
+    assert np.array_equal(got, cuda_gf2.gf2_matmul_plain(t(M), t(bits)).numpy())
+    assert np.array_equal(got, np.asarray(pallas_gf2_matmul(M, bits,
+                                                            interpret=True)))
+
+
 def test_kernel_wrappers_refuse_non_contiguous():
     bits = torch.zeros((16, 64), dtype=torch.int8)
     with pytest.raises(ValueError, match="contiguous"):
