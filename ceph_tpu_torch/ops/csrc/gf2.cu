@@ -49,21 +49,38 @@
 // (M[R, C] @ bits[C, B]) & 1 on int8 bit-planes, the lane of the w=16 and w=4
 // byte layouts and of the packet-layout codes (cauchy, liberation, blaum_roth,
 // liber8tion).
-//   Same popcount-parity core over C input rows.  Eight rows' 32-bit loads are
-//   masked to their low bits (0x01010101) and shifted into one word whose byte c
-//   holds column c's eight bits, so a column's vector is built four columns at
-//   a time.
-//   Bound: bytes, (C + R) * B of 8x-expanded int8 planes; the kernel adds no
-//   traffic beyond one read of bits and one write of the result.  On an
-//   H100 80GB HBM3 at 700 W it ran at about 61% of that bound at B = 2 MiB
-//   (PERF.md).  Each thread keeps only one group of eight row loads in
-//   flight, so narrow B is bound by memory latency instead.  An int8
-//   tensor-core (mma/wgmma) design is later work.
+//   Bound: bytes, (C + R) * B of 8x-expanded int8 planes, one read of bits
+//   and one write of the result (13.8 us at [24,64] x [64, 524288] at the
+//   H100 SXM's 3.35 TB/s).  Two routes, chosen by k2_route from the shape
+//   and the alignment alone:
+//   * mma (R <= 64, C <= 128, B and the bits and out addresses multiples of
+//     16: the main path's cauchy_good k=8 m=3 encode, decode and parity
+//     re-encode, and the w=16 byte layout at k=8 m=3).  The first port's kernel kept one group of eight
+//     row loads in flight per thread and then computed, so DRAM latency and
+//     popcount issue (R popcounts a column) added up.  Here persistent
+//     blocks keep the loads in flight apart from the arithmetic: two
+//     producer warps fill a ring of 256-column stages in shared memory with
+//     bulk asynchronous copies (cp.async.bulk, one per row segment,
+//     completion on mbarriers) while eight consumer warps compute
+//     (M @ bits) & 1 on int8 tensor cores (mma.sync m16n8k32 s8), about one
+//     instruction per 8 columns, 16 output rows and 32 input rows, whatever
+//     R and C are.  What bounds it on an H100 80GB HBM3 at 700 W: the rate
+//     at which a warp issues bulk copies (one producer warp per block ran
+//     the w=16 shape no faster than the first kernel), and the launch and
+//     DRAM ramp a device copy of the same bytes also pays.  Measured
+//     (PERF.md): 25-26 us at the main shape against the first kernel's 37
+//     and a copy's 22; 74-75 us at B = 2 MiB against 90 and 67.
+//   * popc (any other shape), the first port's kernel: the popcount-parity
+//     core over C input rows.  Eight rows' 32-bit loads are masked to their
+//     low bits (0x01010101) and shifted into one word whose byte c holds
+//     column c's eight bits, so a column's vector is built four columns at
+//     a time.  Each thread keeps only one group of eight row loads in
+//     flight, so it is bound by memory latency more than by bandwidth.
 //
 // All: the bit-matrix is an operand (encode, decode and recovery share one
 // kernel), the grid strides over column groups, and each launch checks its own
-// arguments.  The popc route and gf2_matmul build row masks per block in
-// shared memory, the xor route its lookup tables.
+// arguments.  The popc routes build row masks per block in shared memory,
+// the xor route its lookup tables, the mma route its A fragments.
 
 #include <cuda_runtime.h>
 
@@ -303,21 +320,21 @@ apply_bytes_w8_kernel(const int8_t* __restrict__ mbits,
 
 constexpr int kMmaMaxR = 64;            // four m16 tiles of output rows
 constexpr int kMmaMaxC = 128;           // four k32 tiles of input rows
-constexpr int kMmaConsumerWarps = 8;    // one 32-column block of a pass each
-constexpr int kMmaProducerWarps = 2;    // each copies every P-th 32 rows
+constexpr int kMmaConsumerWarps = 8;    // one 32-column block of a tile each
+// A producer warp issues bulk copies at a limited rate (a copy of 256 bytes
+// about every 45 ns on an H100), too slow to keep a stage of 128 rows
+// filling; two warps, each with its own `full` barriers, copy the even and
+// the odd rows.
+constexpr int kMmaProducerWarps = 2;
+constexpr int kMmaThreads = (kMmaConsumerWarps + kMmaProducerWarps) * 32;
 constexpr int kMmaBlocksPerSm = 2;
-constexpr int kMmaSpan = kMmaConsumerWarps * 32;  // columns of one pass
-// Columns a stage holds: one bulk copy moves a row's share of a tile, and a
-// producer warp issues copies at a limited rate, so wider copies keep more
-// bytes moving.  512 where three stages of C <= 64 rows fit in each of two
-// blocks an SM, else 256.
-constexpr int mma_tile(int kt) { return kt <= 2 ? 2 * kMmaSpan : kMmaSpan; }
+constexpr int kMmaTile = kMmaConsumerWarps * 32;  // columns a stage holds
 // Row pitch of a stage in shared memory: 32 bytes over the tile, so rows
 // 4i+t (t = 0..3) start 8 banks apart and the fragment loads are free of
 // bank conflicts; a multiple of 16, as bulk-copy destinations must be.
-__host__ __device__ constexpr int mma_pitch(int tile) { return tile + 32; }
+constexpr int kMmaPitch = kMmaTile + 32;
 constexpr int kMmaMaxStages = 4;
-constexpr int kMmaBarrierBytes = 256;  // empty[4] and full[P][4], P <= 7
+constexpr int kMmaBarrierBytes = 128;  // empty[4], full[2][4]
 constexpr int kMmaSmemBudget = 110 * 1024;  // two blocks share an SM's 228 KB
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -432,51 +449,47 @@ __device__ __forceinline__ uint4 mma_a_fragment(const int8_t* __restrict__ mbits
 //   Exact for any int8: A is masked to 0/1, so each int32 sum is a sum of
 //   input bytes (at most 128 of them) and cannot overflow, and its low bit
 //   is the parity of their low bits.  B needs no mask for that reason.
-template <int MT, int KT, int TILE, int P>
-__global__ void __launch_bounds__((kMmaConsumerWarps + P) * 32, kMmaBlocksPerSm)
+template <int MT, int KT>
+__global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSm)
 gf2_matmul_mma_kernel(const int8_t* __restrict__ mbits,
                       const int8_t* __restrict__ bits, int8_t* __restrict__ out,
                       int R, int C, long long B, int stages) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* empty = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* full = empty + kMmaMaxStages;  // [P][kMmaMaxStages]
+  uint64_t* full = empty + kMmaMaxStages;  // [producer][stage]
   uint4* afrag = reinterpret_cast<uint4*>(smem + kMmaBarrierBytes);
   uint8_t* ring = smem + kMmaBarrierBytes + MT * KT * 32 * sizeof(uint4);
-  constexpr int kTile = TILE, kPitch = mma_pitch(TILE);
-  constexpr int kStageBytes = KT * 32 * kPitch;
+  constexpr int kStageBytes = KT * 32 * kMmaPitch;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long tiles = (B + kTile - 1) / kTile;
+  const long long tiles = (B + kMmaTile - 1) / kMmaTile;
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
-      for (int p = 0; p < P; ++p) mbar_init(&full[p * kMmaMaxStages + s], 1);
+      for (int p = 0; p < kMmaProducerWarps; ++p)
+        mbar_init(&full[p * kMmaMaxStages + s], 1);
       mbar_init(&empty[s], kMmaConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= kMmaConsumerWarps) {  // producer p: rows 32p + lane, step 32P
+  if (warp >= kMmaConsumerWarps) {  // producer p: rows p, p+2, p+4, ...
     const int p = warp - kMmaConsumerWarps;
+    const uint32_t rows = (C + 1 - p) / 2;
     int s = 0;
     uint32_t phase = 0;  // of the ring's current lap; lap 0 needs no release
     bool lap0 = true;
     for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       if (!lap0) mbar_wait(&empty[s], phase ^ 1);
-      const long long col0 = tile * kTile;
-      const uint32_t ncols =
-          static_cast<uint32_t>(B - col0 < kTile ? B - col0 : kTile);
+      const long long col0 = tile * kMmaTile;
+      const uint32_t ncols = static_cast<uint32_t>(
+          B - col0 < kMmaTile ? B - col0 : kMmaTile);
       uint64_t* bar = &full[p * kMmaMaxStages + s];
-      if (lane == 0) {
-        int rows = 0;
-        for (int r0 = 32 * p; r0 < C; r0 += 32 * P)
-          rows += C - r0 < 32 ? C - r0 : 32;
-        mbar_arrive_expect_tx(bar, ncols * rows);
-      }
+      if (lane == 0) mbar_arrive_expect_tx(bar, ncols * rows);
       __syncwarp();
       uint8_t* stage = ring + s * kStageBytes;
-      for (int r = 32 * p + lane; r < C; r += 32 * P)
-        bulk_load(stage + r * kPitch, bits + (long long)r * B + col0, ncols,
+      for (int r = p + 2 * lane; r < C; r += 64)
+        bulk_load(stage + r * kMmaPitch, bits + (long long)r * B + col0, ncols,
                   bar);
       if (++s == stages) {
         s = 0;
@@ -497,70 +510,65 @@ gf2_matmul_mma_kernel(const int8_t* __restrict__ mbits,
   uint32_t phase = 0;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
 #pragma unroll
-    for (int p = 0; p < P; ++p) mbar_wait(&full[p * kMmaMaxStages + s], phase);
-#pragma unroll 1
-    for (int pass = 0; pass < kTile / kMmaSpan; ++pass) {
-      const uint8_t* base =
-          ring + s * kStageBytes + pass * kMmaSpan + warp * 32 + 4 * g;
-      uint32_t acc[MT][4][4];
+    for (int p = 0; p < kMmaProducerWarps; ++p)
+      mbar_wait(&full[p * kMmaMaxStages + s], phase);
+    const uint8_t* base = ring + s * kStageBytes + warp * 32 + 4 * g;
+
+    uint32_t acc[MT][4][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0;
+        for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0;
 
 #pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-        uint32_t b[2][4];
+    for (int kt = 0; kt < KT; ++kt) {
+      uint32_t b[2][4];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          uint32_t w[4];
+      for (int h = 0; h < 2; ++h) {
+        uint32_t w[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            w[i] = *reinterpret_cast<const uint32_t*>(
-                base + (kt * 32 + h * 16 + 4 * i + t) * kPitch);
-          transpose4x4(w, b[h]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const uint4 a = afrag[(mt * KT + kt) * 32 + lane];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_s8(acc[mt][j], a, b[0][j], b[1][j]);
-        }
+        for (int i = 0; i < 4; ++i)
+          w[i] = *reinterpret_cast<const uint32_t*>(
+              base + (kt * 32 + h * 16 + 4 * i + t) * kMmaPitch);
+        transpose4x4(w, b[h]);
       }
-      if (pass == kTile / kMmaSpan - 1) {  // the stage is read: release it
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[s]);
-      }
-
-      const long long col =
-          tile * kTile + pass * kMmaSpan + warp * 32 + 8 * t;
-      if (col < B) {
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint4 a = afrag[(mt * KT + kt) * 32 + lane];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {  // rows g (c0, c1) and g+8 (c2, c3)
-            const int r = mt * 16 + g + 8 * h;
-            if (r < R) {
-              const uint32_t lo =
-                  prmt(prmt(acc[mt][0][2 * h], acc[mt][1][2 * h], 0x0040),
-                       prmt(acc[mt][2][2 * h], acc[mt][3][2 * h], 0x0040),
-                       0x5410) & 0x01010101u;
-              const uint32_t hi = prmt(
-                  prmt(acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1], 0x0040),
-                  prmt(acc[mt][2][2 * h + 1], acc[mt][3][2 * h + 1], 0x0040),
-                  0x5410) & 0x01010101u;
-              *reinterpret_cast<uint2*>(out + (long long)r * B + col) =
-                  make_uint2(lo, hi);
-            }
-          }
-        }
+        for (int j = 0; j < 4; ++j) mma_s8(acc[mt][j], a, b[0][j], b[1][j]);
       }
     }
+    __syncwarp();  // the stage is read: release it
+    if (lane == 0) mbar_arrive(&empty[s]);
     if (++s == stages) {
       s = 0;
       phase ^= 1;
+    }
+
+    const long long col = tile * kMmaTile + warp * 32 + 8 * t;
+    if (col < B) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows g (c0, c1) and g+8 (c2, c3)
+          const int r = mt * 16 + g + 8 * h;
+          if (r < R) {
+            const uint32_t lo =
+                prmt(prmt(acc[mt][0][2 * h], acc[mt][1][2 * h], 0x0040),
+                     prmt(acc[mt][2][2 * h], acc[mt][3][2 * h], 0x0040),
+                     0x5410) & 0x01010101u;
+            const uint32_t hi =
+                prmt(prmt(acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1], 0x0040),
+                     prmt(acc[mt][2][2 * h + 1], acc[mt][3][2 * h + 1], 0x0040),
+                     0x5410) & 0x01010101u;
+            *reinterpret_cast<uint2*>(out + (long long)r * B + col) =
+                make_uint2(lo, hi);
+          }
+        }
+      }
     }
   }
 }
@@ -791,27 +799,25 @@ int k2_route(const int8_t* bits, const int8_t* out, int R, int C,
 }
 
 // Shared memory of the mma kernel: barriers, A fragments, `stages` stages.
-size_t mma_smem(int mt, int kt, int tile, int stages) {
+size_t mma_smem(int mt, int kt, int stages) {
   return kMmaBarrierBytes + (size_t)mt * kt * 32 * sizeof(uint4) +
-         (size_t)stages * kt * 32 * mma_pitch(tile);
+         (size_t)stages * kt * 32 * kMmaPitch;
 }
 
-template <int MT, int KT, int TILE = mma_tile(KT), int P = kMmaProducerWarps>
+template <int MT, int KT>
 int launch_mma(cudaStream_t stream, const int8_t* mbits, const int8_t* bits,
                int8_t* out, int R, int C, long long B) {
   int stages = kMmaMaxStages;
-  while (stages > 2 && mma_smem(MT, KT, TILE, stages) > kMmaSmemBudget)
-    --stages;
-  const size_t smem = mma_smem(MT, KT, TILE, stages);
+  while (stages > 2 && mma_smem(MT, KT, stages) > kMmaSmemBudget) --stages;
+  const size_t smem = mma_smem(MT, KT, stages);
   cudaError_t err = cudaFuncSetAttribute(
-      gf2_matmul_mma_kernel<MT, KT, TILE, P>,
+      gf2_matmul_mma_kernel<MT, KT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (B + TILE - 1) / TILE;
+  const long long tiles = (B + kMmaTile - 1) / kMmaTile;
   const long long cap = (long long)sm_count() * kMmaBlocksPerSm;
   const int grid = static_cast<int>(tiles < cap ? tiles : cap);
-  gf2_matmul_mma_kernel<MT, KT, TILE, P>
-      <<<grid, (kMmaConsumerWarps + P) * 32, smem, stream>>>(
+  gf2_matmul_mma_kernel<MT, KT><<<grid, kMmaThreads, smem, stream>>>(
       mbits, bits, out, R, C, B, stages);
   return static_cast<int>(cudaGetLastError());
 }

@@ -183,18 +183,17 @@ def test_gf2_matmul_route_rule(R, C, B, addresses, route):
     assert route in cuda_gf2.K2_ROUTES
 
 
-MMA_TILES = (256, 512)  # csrc/gf2.cu mma_tile: columns a stage holds
+MMA_TILE, MMA_PITCH = 256, 288  # csrc/gf2.cu kMmaTile, kMmaPitch
 
 
-@pytest.mark.parametrize("tile", MMA_TILES)
-def test_mma_route_pitch_is_free_of_bank_conflicts(tile):
-    """The stage's row pitch (csrc/gf2.cu mma_pitch, the tile plus 32
+def test_mma_route_pitch_is_free_of_bank_conflicts():
+    """The stage's row pitch (csrc/gf2.cu kMmaPitch, the tile plus 32
     bytes) is a multiple of 16, as bulk-copy destinations must be, and puts
     the 32 words a warp loads at once (rows 4i+t, t = 0..3, columns 4g, g =
     0..7, of one 32-column block) in 32 different banks."""
-    pitch = tile + 32
+    pitch = MMA_PITCH
     assert pitch % 16 == 0
-    for block in range(tile // 32):
+    for block in range(MMA_TILE // 32):
         for i in range(8):  # i = 0..3 and the upper half 16 + 4i
             banks = {((4 * i + t) * pitch + block * 32 + 4 * g) // 4 % 32
                      for t in range(4) for g in range(8)}
