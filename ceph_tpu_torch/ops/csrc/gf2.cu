@@ -432,11 +432,12 @@ __device__ __forceinline__ uint4 mma_a_fragment(const int8_t* __restrict__ mbits
 
 // (M[R, C] @ bits[C, B]) & 1 on int8 tensor cores, for R <= 64, C <= 128,
 // B a multiple of 16 and 16-byte aligned bits and out.
-//   Persistent blocks walk tiles of kMmaTile columns.  Warp 8 is the
-//   producer: it keeps `stages` tiles in flight in a ring in shared memory,
-//   one bulk copy per input row segment, each stage's completion counted on
-//   its `full` mbarrier; the consumer warps release a stage on its `empty`
-//   mbarrier.  Warps 0-7 are consumers: warp w takes columns 32w..32w+31 of
+//   Persistent blocks walk tiles of kMmaTile columns.  Warps 8 and 9 are
+//   producers: they keep `stages` tiles in flight in a ring in shared
+//   memory, one bulk copy per input row segment (warp 8 the even rows, warp
+//   9 the odd), each counting its copies' completion on its own `full`
+//   mbarrier of the stage; the consumer warps release a stage on its
+//   `empty` mbarrier.  Warps 0-7 are consumers: warp w takes columns 32w..32w+31 of
 //   each tile.  Lane (g, t) reads input rows 4i+t (and 16+4i+t), i = 0..3,
 //   at columns 4g..4g+3 (four 32-bit shared loads), and transposes the 4x4
 //   bytes, so that byte i of word j is row 4i+t at column 4g+j: its B
@@ -877,9 +878,8 @@ extern "C" int ctt_apply_bytes_w8_popc(const int8_t* mbits,
                    out_rows, B, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int ctt_gf2_matmul_route(const int8_t* mbits, const int8_t* bits,
-                                    const int8_t* out, int R, int C,
-                                    long long B) {
+extern "C" int ctt_gf2_matmul_route(const int8_t* bits, const int8_t* out,
+                                    int R, int C, long long B) {
   return k2_route(bits, out, R, C, B);
 }
 

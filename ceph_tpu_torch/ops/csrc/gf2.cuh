@@ -53,8 +53,8 @@ int ctt_gf2_matmul(const int8_t* mbits, const int8_t* bits, int8_t* out,
 // The route ctt_gf2_matmul takes for these operands: 0 mma (R <= 64,
 // C <= 128, B and the bits and out addresses multiples of 16), else 1 popc
 // with 4-byte accesses or 2 popc with byte accesses.
-int ctt_gf2_matmul_route(const int8_t* mbits, const int8_t* bits,
-                         const int8_t* out, int R, int C, long long B);
+int ctt_gf2_matmul_route(const int8_t* bits, const int8_t* out, int R, int C,
+                         long long B);
 
 // ctt_gf2_matmul on the popc route whatever the shape, so that the two
 // routes can be compared on the same operands.

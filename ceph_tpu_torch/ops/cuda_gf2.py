@@ -66,7 +66,7 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.ctt_gf2_matmul, lib.ctt_gf2_matmul_popc):
         fn.argtypes = [p, p, p, i, i, ll, p]
         fn.restype = i
-    lib.ctt_gf2_matmul_route.argtypes = [p, p, p, i, i, ll]
+    lib.ctt_gf2_matmul_route.argtypes = [p, p, i, i, ll]
     lib.ctt_gf2_matmul_route.restype = i
     lib.ctt_error_string.argtypes = [i]
     lib.ctt_error_string.restype = ctypes.c_char_p

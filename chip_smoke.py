@@ -192,27 +192,6 @@ def phase_kernels(device):
     main_cols = OBJECT_SIZE // 8  # k=8: a 4 MiB object's chunk bytes
     rows = {}
 
-    def compare(name, kernel, plain, args, R, C, B, in_bytes, out_bytes,
-                label, library=None, report=False):
-        got = kernel(*args)
-        want = plain(*args)
-        sync(device)
-        check(got.shape == want.shape and got.dtype == want.dtype,
-              f"{name} {label}: {tuple(got.shape)}/{got.dtype} vs "
-              f"{tuple(want.shape)}/{want.dtype}")
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-        check(err == 0, f"{name} {label}: max_abs_err {err}")
-        b_ms, b_by = bound(R, C, B, in_bytes, out_bytes)
-        line = {"kernel": name, "shape": label, "max_abs_err": err,
-                "ms": time_ms(lambda: kernel(*args), TIMING_REPS),
-                "plain_ms": time_ms(lambda: plain(*args), PLAIN_REPS),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": time_ms(library, TIMING_REPS) if library else None}
-        print("kernel " + json.dumps(line))
-        if report:
-            rows[name] = dict(line)
-        sync(device)
-
     # Both kernels have two routes.  Every shape runs on the route the
     # wrapper takes for it and on the popc route (the first port's kernel);
     # the timed shapes time the two in turns (wrapper's, popc, popc,

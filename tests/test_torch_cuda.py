@@ -110,8 +110,8 @@ def test_gf2_matmul_route_mirror_matches_the_entry(card):
             out = cuda_gf2.gf2_matmul(M, bits)
             route = cuda_gf2.gf2_matmul_route(R, C, B, bits.data_ptr(),
                                               out.data_ptr())
-            code = lib.ctt_gf2_matmul_route(M.data_ptr(), bits.data_ptr(),
-                                            out.data_ptr(), R, C, B)
+            code = lib.ctt_gf2_matmul_route(bits.data_ptr(), out.data_ptr(),
+                                            R, C, B)
             assert cuda_gf2.K2_ROUTES[code] == route
             assert cuda_gf2.gf2_matmul.routes[route] == before[route] + 1
     torch.cuda.synchronize()
