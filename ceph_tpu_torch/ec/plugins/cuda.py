@@ -8,8 +8,15 @@ compute seams are overridden: ``_apply`` (byte layout: reed_sol_van,
 reed_sol_r6_op at w=4/8/16) and ``_apply_rows`` (packet layout: cauchy_orig,
 cauchy_good, liberation, blaum_roth, liber8tion).  Each copies the host
 regions to the codec's device, applies the bit-matrix there through
-ops/gf2.py (whose CUDA kernels are in ops/csrc/gf2.cu) and copies the result
-back.  Bit-matrices are cached on the device per codec, keyed by matrix.
+ops/gf2.py and copies the result back.  As plugin=tpu does, w=8 ``_apply``
+and every ``_apply_rows`` take the packed-bit XOR-schedule lane while
+``packedbit_enabled()`` (CEPH_TPU_PACKEDBIT, default on): one
+``gf2_apply_packedbit`` launch per w=8 call, one ``gf2_xor_packed`` launch on
+the raw packet bytes per packet-row call (kernels in ops/csrc/packedbit.cu).
+Otherwise, and for w=16 and w=4, the int8-plane lane runs (ops/csrc/gf2.cu).
+Bit-matrices are cached per codec, keyed by matrix: on the host for the
+schedule lane (whose programs the gf2 schedule LRU keeps), on the device
+for the int8-plane lane.
 
 The device is the plugin's: ``CudaPlugin(device=None)`` builds codecs on the
 current CUDA device, ``CudaPlugin(device="cpu")`` on the CPU, where the same
@@ -42,7 +49,8 @@ from ceph_tpu_torch.ec.plugins.jerasure import (
 )
 from ceph_tpu_torch.ec.registry import ErasureCodePlugin
 from ceph_tpu_torch.ops.gf2 import (bitmatrix_to_tensor, gf2_apply_bytes,
-                                    gf2_apply_packets)
+                                    gf2_apply_packedbit, gf2_apply_packets,
+                                    gf2_xor_packed, packedbit_enabled)
 from ceph_tpu_torch.utils.cudadev import DeviceLike, resolve_device
 
 # The `ec_plugin` counter set, same schema as plugin=tpu's: direct codec
@@ -83,6 +91,15 @@ class _CudaDispatch:
             bm = cache[key] = bitmatrix_to_tensor(build(), self.device)
         return bm
 
+    def _host_bitmatrix(self, matrix: np.ndarray) -> np.ndarray:
+        cache: Dict[Tuple, np.ndarray] = self.__dict__.setdefault(
+            "_host_bitmatrix_cache", {})
+        key = (matrix.shape, matrix.dtype.str, matrix.tobytes())
+        bm = cache.get(key)
+        if bm is None:
+            bm = cache[key] = matrix_to_bitmatrix(matrix, self.w)
+        return bm
+
     def _dispatch(self, seam: str, run: Callable[[], np.ndarray]) -> np.ndarray:
         try:
             if self.device.type == "cpu":
@@ -106,10 +123,13 @@ class _CudaDispatch:
     # seam override: GF(2^w) matrix applied to symbol regions
     def _apply(self, matrix: np.ndarray, regions: np.ndarray) -> np.ndarray:
         def run() -> np.ndarray:
-            bm = self._device_bitmatrix(
-                matrix, lambda: matrix_to_bitmatrix(matrix, self.w))
-            out = gf2_apply_bytes(bm, self._to_device(regions), self.w,
-                                  matrix.shape[0])
+            data = self._to_device(regions)
+            if packedbit_enabled() and self.w == 8:
+                out = gf2_apply_packedbit(self._host_bitmatrix(matrix), data)
+            else:
+                bm = self._device_bitmatrix(
+                    matrix, lambda: matrix_to_bitmatrix(matrix, self.w))
+                out = gf2_apply_bytes(bm, data, self.w, matrix.shape[0])
             return out.cpu().numpy()
 
         return self._dispatch("apply", run)
@@ -119,6 +139,12 @@ class _CudaDispatch:
         def run() -> np.ndarray:
             w, p = self.w, self.packetsize
             R, nb, _ = rows.shape
+            if packedbit_enabled():
+                # a packet-row combine is a GF(2) XOR of whole rows: the
+                # schedule runs on the packet bytes, with no bit expansion
+                flat = self._to_device(rows.reshape(R, nb * p))
+                out = gf2_xor_packed(np.asarray(bm, dtype=np.uint8), flat)
+                return out.cpu().numpy().reshape(bm.shape[0], nb, p)
             n, out_n = R // w, bm.shape[0] // w
             mbits = self._device_bitmatrix(bm, lambda: bm)
             chunks = (self._to_device(rows).reshape(n, w, nb, p)

@@ -29,7 +29,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 #: library name -> its one source file in csrc/
-SOURCES = {"gf2": "gf2.cu"}
+SOURCES = {"gf2": "gf2.cu", "packedbit": "packedbit.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -20,16 +20,41 @@ in the hand-written kernels of ops/cuda_gf2.py: w=8 byte layout in the fused
 ``gf2_matmul`` between the unpack and pack below.  On CPU tensors the same
 wrappers use their plain versions.  The kernels mask their own ragged edge,
 so no column count is padded or bucketed here.
+
+The second half is the packed-bit static-XOR-schedule lane, the production
+lane for w=8 byte-layout codes and packet rows (``packedbit_enabled()``,
+default on).  Shards are u32 plane words (1 bit a bit; int32 tensors carrying
+the pattern), and a bit-matrix runs as the straight-line XOR program
+``xor_schedule_program`` compiles from it, greedy pairwise CSE included
+(``xor_cse_enabled()``).  Programs live in a process-global LRU keyed by
+(tag, shape, matrix bytes, cse), the reference's ErasureCodeIsaTableCache
+design, and run in the kernels of ops/cuda_packedbit.py with the program as
+an operand.  Its `gf2_sched` counter set (schema below, same as the
+reference's):
+
+    hit            u64         schedule LRU hits
+    miss           u64         LRU misses (a compile follows)
+    evict          u64         entries dropped at capacity
+    compile        u64         schedules compiled (program build + encoding)
+    compile_s      longrunavg  seconds per schedule compile
+    xor_ops_naive  u64         pre-CSE XOR op count, summed over compiles
+    xor_ops_final  u64         post-CSE (as-configured) XOR op count
+    entries        u64         live LRU entries (gauge)
 """
 
 from __future__ import annotations
 
+import heapq
+import os
+import threading
+from collections import OrderedDict
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from ceph_tpu_torch.ops import cuda_gf2
+from ceph_tpu_torch.common.perf_counters import PerfCountersBuilder
+from ceph_tpu_torch.ops import cuda_gf2, cuda_packedbit
 from ceph_tpu_torch.utils.cudadev import DeviceLike, resolve_device
 
 
@@ -142,3 +167,227 @@ def gf2_apply_packets(mbits: torch.Tensor, data: torch.Tensor, w: int,
         dim=-1).to(torch.uint8)
     return (packed.reshape(out_rows, w, nb, packetsize).permute(0, 2, 1, 3)
             .reshape(out_rows, chunk))
+
+
+# -- packed-bit static-schedule XOR: the production lane ---------------------
+
+SCHED_PERF = (
+    PerfCountersBuilder("gf2_sched")
+    .add_u64_counter("hit", "compiled-schedule LRU hits")
+    .add_u64_counter("miss", "compiled-schedule LRU misses")
+    .add_u64_counter("evict", "compiled schedules evicted at capacity")
+    .add_u64_counter("compile", "schedules compiled")
+    .add_time_avg("compile_s", "schedule program build seconds per matrix")
+    .add_u64_counter("xor_ops_naive",
+                     "XOR ops before CSE, summed over compiled matrices")
+    .add_u64_counter("xor_ops_final",
+                     "XOR ops after the configured CSE pass")
+    .add_u64("entries", "live compiled schedules (gauge)")
+    .create_perf_counters())
+
+_XOR_SCHEDULE_CAPACITY = 64
+_XOR_SCHEDULES: "OrderedDict" = OrderedDict()
+_XOR_LOCK = threading.Lock()
+
+
+def _sched_resync() -> None:
+    """`perf reset` re-reads the live LRU size into the entries gauge (under
+    the cache lock, as _sched_cache_put writes it)."""
+    with _XOR_LOCK:
+        SCHED_PERF.set("entries", len(_XOR_SCHEDULES))
+
+
+SCHED_PERF.resync = _sched_resync
+
+
+def packedbit_enabled() -> bool:
+    """Whether the packed-bit XOR-schedule lane serves w=8 byte-layout and
+    packet-row dispatch.  Default on; CEPH_TPU_PACKEDBIT=0 pins the int8-plane
+    lane.  Read at call time, the same variable as the reference's."""
+    return os.environ.get("CEPH_TPU_PACKEDBIT", "1") != "0"
+
+
+def xor_cse_enabled() -> bool:
+    """Whether XOR schedules run the common-subexpression pass.  Default on;
+    CEPH_TPU_XOR_CSE=0 pins the naive per-row schedules."""
+    return os.environ.get("CEPH_TPU_XOR_CSE", "1") != "0"
+
+
+def xor_schedule_program(bitmatrix: np.ndarray, cse: "bool | None" = None):
+    """Compile a [R, C] GF(2) bit-matrix into a straight-line XOR program:
+    returns (ops, outs, n_xors) where `ops` is a list of (a, b) pairs --
+    op i computes temp C+i = term_a ^ term_b -- and `outs[r]` is the term
+    list (inputs 0..C-1, temps C+...) XORed together for output row r.
+    n_xors counts total XOR instructions.
+
+    With cse=True the greedy pairwise pass factors the pair of terms
+    co-occurring in the most rows into a shared temp, repeatedly.  Ties break
+    to the smallest pair, so the output is deterministic and identical to
+    the reference's, which the cache keys and counters rely on."""
+    if cse is None:
+        cse = xor_cse_enabled()
+    bm = np.asarray(bitmatrix, dtype=np.uint8)
+    R, C = bm.shape
+    sets = [set(np.nonzero(bm[r])[0].tolist()) for r in range(R)]
+    naive = sum(max(0, len(s) - 1) for s in sets)
+    ops: list = []
+    if cse and naive <= 4096:  # pathological profiles skip the greedy pass
+        # The pair histogram is built once and updated only for the rows each
+        # factoring touches; a lazy-deletion heap orders candidates by
+        # (count desc, a asc, b asc).
+        counts: dict = {}
+        occ: dict = {}  # term -> set of row indices containing it
+        for r, s in enumerate(sets):
+            elems = sorted(s)
+            for x in elems:
+                occ.setdefault(x, set()).add(r)
+            for i in range(len(elems)):
+                for j in range(i + 1, len(elems)):
+                    p = (elems[i], elems[j])
+                    counts[p] = counts.get(p, 0) + 1
+        heap = [(-c, a, b) for (a, b), c in counts.items() if c >= 2]
+        heapq.heapify(heap)
+
+        def bump(p, d):
+            c = counts.get(p, 0) + d
+            if c > 0:
+                counts[p] = c
+                if c >= 2:
+                    heapq.heappush(heap, (-c, p[0], p[1]))
+            else:
+                counts.pop(p, None)
+
+        while heap:
+            negc, a, b = heapq.heappop(heap)
+            if counts.get((a, b), 0) != -negc:
+                continue  # stale entry: the pair's count has changed
+            t = C + len(ops)
+            ops.append((a, b))
+            for r in sorted(occ[a] & occ[b]):
+                s = sets[r]
+                for x in s:
+                    if x != a and x != b:
+                        bump((min(a, x), max(a, x)), -1)
+                        bump((min(b, x), max(b, x)), -1)
+                bump((a, b), -1)
+                s.discard(a)
+                s.discard(b)
+                occ[a].discard(r)
+                occ[b].discard(r)
+                for x in s:  # t > every existing term
+                    bump((x, t), +1)
+                s.add(t)
+                occ.setdefault(t, set()).add(r)
+    outs = [sorted(s) for s in sets]
+    n_xors = len(ops) + sum(max(0, len(o) - 1) for o in outs)
+    return ops, outs, n_xors
+
+
+def _sched_cache_get(key):
+    with _XOR_LOCK:
+        prog = _XOR_SCHEDULES.get(key)
+        if prog is not None:
+            _XOR_SCHEDULES.move_to_end(key)  # true LRU: hits refresh
+    SCHED_PERF.inc("hit" if prog is not None else "miss")
+    return prog
+
+
+def _sched_cache_put(key, prog) -> None:
+    evicted = 0
+    with _XOR_LOCK:
+        _XOR_SCHEDULES[key] = prog
+        _XOR_SCHEDULES.move_to_end(key)
+        while len(_XOR_SCHEDULES) > _XOR_SCHEDULE_CAPACITY:
+            _XOR_SCHEDULES.popitem(last=False)
+            evicted += 1
+        # the gauge is written under the cache lock, so a stale snapshot
+        # never overwrites a newer one (lock order: cache, then perf)
+        SCHED_PERF.set("entries", len(_XOR_SCHEDULES))
+    if evicted:
+        SCHED_PERF.inc("evict", evicted)
+
+
+def _compiled_schedule(tag: str, bitmatrix, cse=None) -> cuda_packedbit.Program:
+    """The LRU-cached Program per (tag, shape, matrix bytes, cse).
+    Thread-safe."""
+    bm = np.asarray(bitmatrix, dtype=np.uint8)
+    if cse is None:
+        cse = xor_cse_enabled()
+    key = (tag, bm.shape, bm.tobytes(), cse)
+    prog = _sched_cache_get(key)
+    if prog is None:
+        with SCHED_PERF.time_avg("compile_s"):
+            ops, outs, n_xors = xor_schedule_program(bm, cse=cse)
+            prog = cuda_packedbit.Program(ops, outs, bm.shape[1])
+        SCHED_PERF.inc("compile")
+        naive = int(np.maximum(
+            (bm != 0).sum(axis=1).astype(np.int64) - 1, 0).sum())
+        SCHED_PERF.inc("xor_ops_naive", naive)
+        SCHED_PERF.inc("xor_ops_final", int(n_xors))
+        _sched_cache_put(key, prog)
+    return prog
+
+
+def gf2_xor_packed(bitmatrix: np.ndarray, planes: torch.Tensor,
+                   cse=None) -> torch.Tensor:
+    """[R, C] GF(2) bit-matrix applied by its XOR schedule to the first C
+    rows of `planes`: [>= C, Wc] int32 plane words for byte-layout codes, or
+    raw uint8 packet rows for the bitmatrix codec family -> [R, Wc] of the
+    same dtype.  Rows beyond C are ignored (temps stay numbered from C)."""
+    return cuda_packedbit.xor_schedule(
+        _compiled_schedule("xor", bitmatrix, cse=cse), planes.contiguous())
+
+
+def to_packedbit(data: torch.Tensor) -> torch.Tensor:
+    """[n, B] uint8 chunks (w=8 byte layout) -> [n*8, ceil(B/32)] int32 plane
+    words: the entry boundary of packed-bit residency."""
+    return cuda_packedbit.to_packedbit(data.contiguous())
+
+
+def from_packedbit(planes: torch.Tensor, out_rows: int) -> torch.Tensor:
+    """[out_rows*8, Wc] int32 plane words -> [out_rows, Wc*32] uint8: the
+    exit boundary."""
+    return cuda_packedbit.from_packedbit(planes.contiguous(), out_rows)
+
+
+def gf2_apply_packedbit(bitmatrix: np.ndarray,
+                        data: torch.Tensor) -> torch.Tensor:
+    """[out_rows*8, n*8] GF(2) bit-matrix applied to [n, B] uint8 chunks
+    (w=8 byte layout) through the packed-bit lane in one launch -> [out_rows,
+    B] uint8, byte-compatible with gf2_apply_bytes(bm, data, 8, out_rows)."""
+    return cuda_packedbit.apply_packedbit(
+        _compiled_schedule("apply", bitmatrix), data.contiguous())
+
+
+def gf2_encode_packedbit_resident(bitmatrix: np.ndarray, data: torch.Tensor):
+    """The packed-bit residency write path: [n, B] uint8 in, one launch ->
+    (packed parity [out_rows, B] uint8, data ‖ parity plane words
+    [(n+out_rows)*8, ceil(B/32)] int32)."""
+    return cuda_packedbit.apply_packedbit(
+        _compiled_schedule("resident", bitmatrix), data.contiguous(),
+        resident=True)
+
+
+def pack_bitplanes_u32(data: np.ndarray, w: int = 8) -> np.ndarray:
+    """Host-side packed-bit layout: [n, B] uint8 chunks -> [n*w, ceil(B/32)]
+    uint32 words (bit b of word i = bit-plane value at column 32i+b).
+    Columns pad out with zero bits to whole words; w<8 packs the low w
+    bit-planes."""
+    n, B = data.shape
+    if B % 32:
+        data = np.pad(data, ((0, 0), (0, 32 - B % 32)))
+    bits = ((data[:, None, :] >> np.arange(w, dtype=np.uint8)[None, :, None])
+            & 1).reshape(n * w, data.shape[1])
+    return np.packbits(bits, axis=1, bitorder="little").view(np.uint32)
+
+
+def unpack_bitplanes_u32(planes: np.ndarray, w: int, out_rows: int,
+                         B: int) -> np.ndarray:
+    """Inverse of pack_bitplanes_u32 for the parity rows: [out_rows*w, Wc]
+    u32 words -> [out_rows, B] uint8, trimming any pad columns."""
+    bits = np.unpackbits(np.ascontiguousarray(planes).view(np.uint8), axis=1,
+                         bitorder="little")[:, :B]
+    out = np.zeros((out_rows, B), np.uint8)
+    for x in range(w):
+        out |= (bits[x::w].astype(np.uint8) << x)
+    return out

@@ -56,18 +56,21 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="device plugin=cuda runs on: cuda, cuda:N or cpu")
     p.add_argument("--perf-dump", action="store_true",
-                   help="after the run, print the ec_plugin perf counter "
-                        "snapshot as JSON on stderr (stdout keeps the "
-                        "reference '<seconds>\\t<KB>' protocol)")
+                   help="after the run, print the gf2_sched/ec_plugin "
+                        "perf counter snapshot as JSON on stderr (stdout "
+                        "keeps the reference '<seconds>\\t<KB>' protocol)")
     return p.parse_args(argv)
 
 
 def perf_dump_json() -> str:
-    """The `ec_plugin` counter set (device dispatches vs CPU-served calls
-    through the cuda plugin seams) as one JSON object."""
+    """The counter sets this CLI exercises, as one JSON object: `gf2_sched`
+    (schedule LRU hit/miss/compile/CSE) and `ec_plugin` (device dispatches
+    vs CPU-served calls through the cuda plugin seams)."""
     from ceph_tpu_torch.ec.plugins.cuda import PLUGIN_PERF
+    from ceph_tpu_torch.ops.gf2 import SCHED_PERF
 
-    return json.dumps({"ec_plugin": PLUGIN_PERF.dump()})
+    return json.dumps({"gf2_sched": SCHED_PERF.dump(),
+                       "ec_plugin": PLUGIN_PERF.dump()})
 
 
 def build_profile(args):

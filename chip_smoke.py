@@ -19,19 +19,35 @@ Phases; any failure exits nonzero before the result line is printed:
             line); at the main path's shapes and at 2 MiB the two are timed
             in turns (wrapper's, popc, popc, wrapper's), and a "floor" line
             times a device copy of the same number of bytes, same flush and
-            events.
-3. main     launch counts set to 0, then the port's entry points: the
-            benchmark CLI (plugin=cuda reed_sol_van k=8 m=3, 4 MiB objects,
-            encode, then decode with 3 random erasures; the CLI verifies
-            recovered content), 4 MiB objects under plugin=cuda against the
-            port's CPU plugin=jerasure (reed_sol_van and cauchy_good k=8 m=3),
-            and the archived plugin=tpu corpus replayed under plugin=cuda.
-            Every kernel must have launched in this phase, every
-            apply_bytes_w8 launch must have taken the xor route and every
-            gf2_matmul launch the mma route.
-4. split    host prepare / host->device / kernel call / device->host of
-            one 4 MiB encode (the codec API takes host bytes), and the
-            device's busy share over back-to-back encodes from torch.profiler.
+            events.  The packed-bit kernels (xor_schedule, apply_packedbit,
+            to_packedbit, from_packedbit) likewise, each on its one route,
+            with a floor line at each main-path shape; apply_packedbit is
+            timed in turns with apply_bytes_w8 on the same operands
+            (apply_packedbit, apply_bytes_w8, apply_bytes_w8,
+            apply_packedbit), since both compute the same function.
+3. main     the port's entry points, three runs, each with every launch
+            count set to 0 just before it and read just after:
+            a. the packed-bit lane on (the default): the benchmark CLI
+               (plugin=cuda reed_sol_van k=8 m=3, 4 MiB objects, encode, then
+               decode with 3 random erasures; the CLI verifies recovered
+               content), 4 MiB objects under plugin=cuda against the port's
+               CPU plugin=jerasure (reed_sol_van and cauchy_good k=8 m=3),
+               and the archived plugin=tpu corpus replayed under
+               plugin=cuda.  xor_schedule and apply_packedbit must launch,
+               apply_bytes_w8 and gf2_matmul must not;
+            b. the same with CEPH_TPU_PACKEDBIT=0: apply_bytes_w8 (every
+               launch on the xor route) and gf2_matmul (every launch on the
+               mma route) must launch, the packed-bit kernels must not;
+            c. a 4 MiB resident round trip: gf2_encode_packedbit_resident,
+               to_packedbit of the data against its planes, three data
+               chunks' planes zeroed and rebuilt by gf2_xor_packed of a
+               decode matrix over the data ‖ parity planes, from_packedbit,
+               and the rebuilt chunks and the parity checked against the
+               CPU plugin=jerasure.  Every packed-bit kernel must launch.
+4. split    host prepare / host->device / kernel call (apply_packedbit,
+            the lane's one launch) / device->host of one 4 MiB encode (the
+            codec API takes host bytes), and the device's busy share over
+            back-to-back encodes from torch.profiler.
 5. report   the card, one {"kernels": [...]} line, and the result line.
 """
 
@@ -65,12 +81,23 @@ DECODE_CHOSEN = tuple(c for c in range(11) if c not in LOST)[:8]
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and int8 tensor ops/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1.979e15
+# 32-bit integer operations/s outside the tensor cores: 132 SMs of 64 INT32
+# units at the 1.98 GHz boost clock (Hopper architecture white paper)
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 KERNEL_META = {
     "apply_bytes_w8": ("ceph_tpu_torch/ops/csrc/gf2.cu",
                        "ceph_tpu/ops/pallas_gf2.py:57"),
     "gf2_matmul": ("ceph_tpu_torch/ops/csrc/gf2.cu",
                    "ceph_tpu/ops/pallas_gf2.py:93"),
+    "xor_schedule": ("ceph_tpu_torch/ops/csrc/packedbit.cu",
+                     "ceph_tpu/ops/gf2.py:532"),
+    "apply_packedbit": ("ceph_tpu_torch/ops/csrc/packedbit.cu",
+                        "ceph_tpu/ops/gf2.py:591"),
+    "to_packedbit": ("ceph_tpu_torch/ops/csrc/packedbit.cu",
+                     "ceph_tpu/ops/gf2.py:576"),
+    "from_packedbit": ("ceph_tpu_torch/ops/csrc/packedbit.cu",
+                       "ceph_tpu/ops/gf2.py:584"),
 }
 
 
@@ -99,6 +126,15 @@ def bound(R: int, C: int, B: int, in_bytes: int, out_bytes: int):
     int8 tensor operations."""
     bytes_ms = (R * C + in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
     ops_ms = 2.0 * R * C * B / PEAK_INT8_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def xor_bound(n_bytes: int, word_ops: int):
+    """(bound_ms, bound_by) of a packed-bit kernel: the bytes it must move
+    (inputs read once, outputs written once) over HBM bandwidth, or its
+    XORs of 32-bit words over the INT32 rate, whichever is larger."""
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = word_ops / PEAK_INT32_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -170,14 +206,25 @@ def _bitmatrices(device):
     check(chosen == (1, 2, 3, 5, 6, 8, 9, 10), f"decode selection {chosen}")
     cauchy = matrix_to_bitmatrix(cauchy_good_matrix(8, 3, 8), 8)
     full = np.vstack([np.eye(64, dtype=np.uint8), cauchy])
+    rs_decode3 = matrix_to_bitmatrix(inv[[0, 4, 7]], 8)
     return {
         "rs_encode": matrix_to_bitmatrix(vandermonde_coding_matrix(8, 3, 8), 8),
-        "rs_decode3": matrix_to_bitmatrix(inv[[0, 4, 7]], 8),
+        "rs_decode3": rs_decode3,
+        "rs_decode3_resident": resident_decode_bitmatrix(rs_decode3, chosen),
         "cauchy_good": cauchy,
         "cauchy_decode3": invert_bitmatrix(np.vstack(
             [full[c * 8:(c + 1) * 8] for c in DECODE_CHOSEN])),
         "rs_w16": matrix_to_bitmatrix(vandermonde_coding_matrix(8, 3, 16), 16),
     }
+
+
+def resident_decode_bitmatrix(bm: np.ndarray, chosen, n_chunks: int = 11):
+    """A decode bit-matrix over the chosen chunks' planes, spread over the
+    planes of all n_chunks chunks (data ‖ parity), zero on the others."""
+    out = np.zeros((bm.shape[0], n_chunks * 8), dtype=np.uint8)
+    for i, c in enumerate(chosen):
+        out[:, c * 8:(c + 1) * 8] = bm[:, i * 8:(i + 1) * 8]
+    return out
 
 
 def phase_kernels(device):
@@ -302,7 +349,171 @@ def phase_kernels(device):
                        device)
         k2(M, flat[offset:].view(C, B),
            f"int8 [{R},{C}]x[{C},{B}]" + (f" base+{offset}" if offset else ""))
+    phase_packedbit(device, bms, rng, rows)
     return rows
+
+
+def phase_packedbit(device, bms, rng, rows) -> None:
+    """K3-K6 against their plain versions, byte for byte; the main-path
+    shapes and 2 MiB of columns timed, with floors, K4 in turns with K1."""
+    import torch
+
+    from ceph_tpu_torch.ops import cuda_gf2
+    from ceph_tpu_torch.ops import cuda_packedbit as pb
+    from ceph_tpu_torch.ops.gf2 import xor_schedule_program
+
+    main_cols = OBJECT_SIZE // 8
+
+    def program(bm, cse=True):
+        ops, outs, n_xors = xor_schedule_program(bm, cse=cse)
+        return pb.Program(ops, outs, bm.shape[1]), n_xors
+
+    def compare(name, fn, plain, label, n_bytes, word_ops, timed=False,
+                report=False, floor=False):
+        wrapper = getattr(pb, name)
+        before = dict(getattr(wrapper, "routes", {}))
+        got = fn()
+        after = getattr(wrapper, "routes", {})
+        path = next((r for r in after if after[r] != before[r]), "cuda")
+        want = plain()
+        sync(device)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        err = 0
+        for g, w in pairs:
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"{name} {label}: {tuple(g.shape)}/{g.dtype} against "
+                  f"{tuple(w.shape)}/{w.dtype}")
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max()))
+        check(err == 0, f"{name} {label}: max_abs_err {err}")
+        line = {"kernel": name, "path": path, "shape": label,
+                "max_abs_err": err}
+        if timed:
+            b_ms, b_by = xor_bound(n_bytes, word_ops)
+            line.update(ms=time_ms(fn, TIMING_REPS),
+                        plain_ms=time_ms(plain, PLAIN_REPS), bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+        print("kernel " + json.dumps(line))
+        if report:
+            rows[name] = line
+        if floor:
+            n = n_bytes // 2  # read n and write n: the kernel's bytes
+            src = torch.empty(n, dtype=torch.uint8, device=device)
+            dst = torch.empty_like(src)
+            print("floor " + json.dumps({
+                "kernel": name, "shape": label, "copy_bytes": n,
+                "ms": time_ms(lambda: dst.copy_(src), TIMING_REPS)}))
+            del src, dst
+        return line
+
+    progs = {name: program(bms[name]) for name in
+             ("rs_encode", "rs_decode3", "rs_decode3_resident", "cauchy_good")}
+    zero_row = bms["rs_encode"].copy()
+    zero_row[5] = 0
+    progs["zero_row"] = program(zero_row)
+    progs["nocse"] = program(bms["rs_encode"], cse=False)
+    from ceph_tpu_torch.ec.matrices import (matrix_to_bitmatrix,
+                                            vandermonde_coding_matrix)
+    progs["k20m6"] = program(matrix_to_bitmatrix(
+        vandermonde_coding_matrix(20, 6, 8), 8))
+
+    def rand(dtype, shape, offset=0):
+        info = np.iinfo(dtype)
+        n = int(np.prod(shape))
+        flat = _tensor(rng.integers(info.min, info.max, n + offset,
+                                    dtype=dtype), device)
+        return flat[offset:].view(*shape)
+
+    # K3: packet rows of the cauchy_good encode and the resident decode's
+    # plane words (main path), 2 MiB of columns as plane words, then ragged,
+    # misaligned, zero-row, no-CSE and k=20 m=6 programs
+    def k3(pname, rows_in, label, **kw):
+        prog, n_xors = progs[pname]
+        rb = rows_in.shape[1] * rows_in.element_size()
+        compare("xor_schedule", lambda: pb.xor_schedule(prog, rows_in),
+                lambda: pb.xor_schedule_plain(prog, rows_in),
+                f"{pname} [{prog.R},{prog.C}]x{list(rows_in.shape)} "
+                f"{str(rows_in.dtype)[6:]}{label}",
+                (prog.C + prog.R) * rb, n_xors * -(-rb // 4), **kw)
+
+    k3("cauchy_good", rand(np.uint8, (64, main_cols)), "", timed=True,
+       report=True, floor=True)
+    k3("rs_decode3_resident", rand(np.int32, (88, main_cols // 32)), "",
+       timed=True, floor=True)
+    k3("rs_encode", rand(np.int32, (64, BATCH_COLS // 32)), "", timed=True)
+    for N in (1, 31, 1000):
+        k3("rs_encode", rand(np.uint8, (64, N)), "")
+    k3("rs_encode", rand(np.uint8, (64, 4096), offset=1), " base+1")
+    k3("rs_encode", rand(np.uint8, (64, 4096), offset=4), " base+4")
+    k3("rs_encode", rand(np.int32, (66, 1001), offset=1), " base+4")
+    for pname in ("zero_row", "nocse"):
+        k3(pname, rand(np.int32, (64, 4096)), "")
+    k3("k20m6", rand(np.uint8, (160, 65536)), "")
+    k3("k20m6", rand(np.int32, (160, 1000)), "")
+
+    # K4: both forms, the encode in turns with K1 on the same operands
+    def k4(pname, data, label, resident=False, **kw):
+        prog, n_xors = progs[pname]
+        k, B = data.shape
+        W = -(-B // 32)
+        n_bytes = k * B + prog.R // 8 * B
+        if resident:
+            n_bytes += (prog.C + prog.R) * W * 4
+        return compare(
+            "apply_packedbit",
+            lambda: pb.apply_packedbit(prog, data, resident),
+            lambda: pb.apply_packedbit_plain(prog, data, resident),
+            f"{pname}{' resident' if resident else ''} [{prog.R},{prog.C}]x"
+            f"[{k},{B}]{label}", n_bytes, n_xors * W, **kw)
+
+    data = rand(np.uint8, (8, main_cols))
+    main = k4("rs_encode", data, "", timed=True, report=True, floor=True)
+    bm_enc = _tensor(bms["rs_encode"].astype(np.int8), device)
+    prog = progs["rs_encode"][0]
+    turns = {"apply_packedbit": [], "apply_bytes_w8": []}
+    for name in ("apply_packedbit", "apply_bytes_w8", "apply_bytes_w8",
+                 "apply_packedbit"):
+        fn = ((lambda: pb.apply_packedbit(prog, data))
+              if name == "apply_packedbit"
+              else (lambda: cuda_gf2.apply_bytes_w8(bm_enc, data)))
+        turns[name].append(time_ms(fn, TIMING_REPS))
+    print("turns " + json.dumps({"shape": main["shape"], **turns}))
+    rows["apply_packedbit"]["ms_turns"] = turns["apply_packedbit"]
+    rows["apply_packedbit"]["apply_bytes_w8_ms_turns"] = turns["apply_bytes_w8"]
+    k4("rs_encode", data, "", resident=True, timed=True)
+    k4("rs_decode3", rand(np.uint8, (8, main_cols)), "", timed=True)
+    k4("rs_encode", rand(np.uint8, (8, BATCH_COLS)), "", timed=True)
+    for B in (1, 31, 1000, 32768 + 17):
+        k4("rs_encode", rand(np.uint8, (8, B)), "", resident=True)
+    k4("rs_encode", rand(np.uint8, (8, 4096), offset=1), " base+1")
+    for pname in ("zero_row", "nocse"):
+        k4(pname, rand(np.uint8, (8, 4096)), "", resident=True)
+    k4("k20m6", rand(np.uint8, (20, 65536 + 8)), "", resident=True)
+
+    # K5 and K6: the two transposes
+    def k5(data, label, **kw):
+        n, B = data.shape
+        compare("to_packedbit", lambda: pb.to_packedbit(data),
+                lambda: pb.to_packedbit_plain(data), f"[{n},{B}]{label}",
+                n * B + n * 8 * -(-B // 32) * 4, 0, **kw)
+
+    def k6(planes, label, **kw):
+        R8, W = planes.shape
+        compare("from_packedbit", lambda: pb.from_packedbit(planes, R8 // 8),
+                lambda: pb.from_packedbit_plain(planes, R8 // 8),
+                f"[{R8},{W}]{label}", R8 * W * 4 + R8 // 8 * W * 32, 0, **kw)
+
+    k5(rand(np.uint8, (8, main_cols)), "", timed=True, report=True, floor=True)
+    k5(rand(np.uint8, (8, BATCH_COLS)), "", timed=True)
+    for B in (1, 31, 1000):
+        k5(rand(np.uint8, (8, B)), "")
+    k5(rand(np.uint8, (8, 4096), offset=1), " base+1")
+    k6(rand(np.int32, (24, main_cols // 32)), "", timed=True, report=True,
+       floor=True)
+    k6(rand(np.int32, (24, BATCH_COLS // 32)), "", timed=True)
+    for W in (1, 31):
+        k6(rand(np.int32, (24, W)), "")
+    k6(rand(np.int32, (24, 1000), offset=1), " base+4")
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -356,15 +567,37 @@ def _replay_corpus(device) -> None:
           "plugin=cuda (encode, 1- and 2-erasure decode)")
 
 
-def phase_main(device):
-    """The port's main path; returns the kernels' launch counts in it."""
-    from ceph_tpu_torch.ops import cuda_gf2
+def _wrappers():
+    """Every kernel's wrapper, by the name the report gives it."""
+    from ceph_tpu_torch.ops import cuda_gf2, cuda_packedbit
 
-    cuda_gf2.apply_bytes_w8.launches = 0
-    cuda_gf2.apply_bytes_w8.routes = dict.fromkeys(cuda_gf2.K1_ROUTES, 0)
-    cuda_gf2.gf2_matmul.launches = 0
-    cuda_gf2.gf2_matmul.routes = dict.fromkeys(cuda_gf2.K2_ROUTES, 0)
+    return {"apply_bytes_w8": cuda_gf2.apply_bytes_w8,
+            "gf2_matmul": cuda_gf2.gf2_matmul,
+            "xor_schedule": cuda_packedbit.xor_schedule,
+            "apply_packedbit": cuda_packedbit.apply_packedbit,
+            "to_packedbit": cuda_packedbit.to_packedbit,
+            "from_packedbit": cuda_packedbit.from_packedbit}
 
+
+def _zero_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes = dict.fromkeys(fn.routes, 0)
+
+
+def _read_counts(device, run: str):
+    sync(device)
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    routes = {name: dict(fn.routes) for name, fn in _wrappers().items()
+              if hasattr(fn, "routes")}
+    print(f"main path {run} launches: {json.dumps(counts)}")
+    print(f"main path {run} routes: {json.dumps(routes)}")
+    return counts, routes
+
+
+def _codec_path(device) -> None:
+    """The CLI, the identity checks against CPU jerasure and the corpus."""
     base = ["--plugin", "cuda", "--device", str(device), "-P",
             "technique=reed_sol_van", "-P", "k=8", "-P", "m=3",
             "--size", str(OBJECT_SIZE), "--iterations", str(CLI_ITERATIONS)]
@@ -392,18 +625,86 @@ def phase_main(device):
               f"{OBJECT_SIZE} byte object = CPU plugin=jerasure, 11 chunks of "
               f"{len(ec[0])} bytes; 3-erasure decode exact")
     _replay_corpus(device)
-    sync(device)
-    counts = {"apply_bytes_w8": cuda_gf2.apply_bytes_w8.launches,
-              "gf2_matmul": cuda_gf2.gf2_matmul.launches}
-    routes = {"apply_bytes_w8": dict(cuda_gf2.apply_bytes_w8.routes),
-              "gf2_matmul": dict(cuda_gf2.gf2_matmul.routes)}
-    print(f"main path launches: {json.dumps(counts)}")
-    print(f"main path routes: {json.dumps(routes)}")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+
+
+def _resident_round_trip(device) -> None:
+    """A 4 MiB object through the resident form of the packed-bit lane:
+    encode to parity and data ‖ parity planes, lose three data chunks'
+    planes, rebuild them from the other planes, and leave planes for bytes."""
+    import torch
+
+    from ceph_tpu_torch.ec.matrices import matrix_to_bitmatrix
+    from ceph_tpu_torch.ops import gf2 as lane
+
+    codec = _codec("cuda", device, technique="reed_sol_van", k=8, m=3)
+    cpu = _codec("jerasure", "cpu", technique="reed_sol_van", k=8, m=3)
+    obj = np.random.default_rng(SEED + 2).integers(
+        0, 256, OBJECT_SIZE, dtype=np.uint8).tobytes()
+    chunks = codec.encode_prepare(obj, codec.get_chunk_size(len(obj)))
+    B = chunks.shape[1]
+    data = torch.from_numpy(chunks).to(device)
+    parity, planes = lane.gf2_encode_packedbit_resident(
+        matrix_to_bitmatrix(codec.matrix, 8), data)
+    want = cpu.encode(set(range(11)), obj)
+    got = parity.cpu().numpy()
+    for c in range(3):
+        check(np.array_equal(got[c], want[8 + c]),
+              f"resident parity chunk {8 + c} differs from CPU jerasure")
+    check(torch.equal(lane.to_packedbit(data), planes[:64]),
+          "to_packedbit of the data differs from its resident planes")
+    lost = (0, 4, 7)
+    chosen, inv = codec.decode_selection(set(lost), set(range(11)) - set(lost))
+    decode = resident_decode_bitmatrix(
+        matrix_to_bitmatrix(inv[list(lost)], 8), chosen)
+    damaged = planes.clone()
+    for c in lost:
+        damaged[c * 8:(c + 1) * 8] = 0
+    rebuilt = lane.from_packedbit(lane.gf2_xor_packed(decode, damaged),
+                                  len(lost))[:, :B].cpu().numpy()
+    for i, c in enumerate(lost):
+        check(np.array_equal(rebuilt[i], chunks[c]),
+              f"resident round trip rebuilt chunk {c} wrong")
+    print(f"resident: {OBJECT_SIZE} byte object encoded to {tuple(planes.shape)} "
+          f"plane words, parity = CPU jerasure, chunks {list(lost)} rebuilt "
+          f"from chunks {list(chosen)}'s planes")
+
+
+def phase_main(device):
+    """The port's main path, three runs; returns the kernels' launch counts
+    summed over them and the K1/K2 routes of the run with the lane off."""
+    _zero_counts()
+    _codec_path(device)
+    on, _ = _read_counts(device, "(packed-bit lane on)")
+    for name in ("xor_schedule", "apply_packedbit"):
+        check(on[name] > 0, f"{name} never launched with the lane on")
+    for name in ("apply_bytes_w8", "gf2_matmul"):
+        check(on[name] == 0, f"{name} launched with the packed-bit lane on")
+
+    saved = os.environ.get("CEPH_TPU_PACKEDBIT")
+    os.environ["CEPH_TPU_PACKEDBIT"] = "0"
+    try:
+        _zero_counts()
+        _codec_path(device)
+        off, routes = _read_counts(device, "(CEPH_TPU_PACKEDBIT=0)")
+    finally:
+        if saved is None:
+            os.environ.pop("CEPH_TPU_PACKEDBIT")
+        else:
+            os.environ["CEPH_TPU_PACKEDBIT"] = saved
     for name, route in (("apply_bytes_w8", "xor"), ("gf2_matmul", "mma")):
-        check(routes[name][route] == counts[name],
+        check(off[name] > 0, f"{name} never launched with the lane off")
+        check(routes[name][route] == off[name],
               f"{name} left the {route} route on the main path: {routes[name]}")
+    for name in ("xor_schedule", "apply_packedbit"):
+        check(off[name] == 0, f"{name} launched with CEPH_TPU_PACKEDBIT=0")
+
+    _zero_counts()
+    _resident_round_trip(device)
+    res, _ = _read_counts(device, "(resident round trip)")
+    for name in ("xor_schedule", "apply_packedbit", "to_packedbit",
+                 "from_packedbit"):
+        check(res[name] > 0, f"{name} never launched in the resident round trip")
+    counts = {name: on[name] + off[name] + res[name] for name in on}
     return counts, routes
 
 
@@ -413,14 +714,13 @@ def phase_split(device) -> None:
     """Where one 4 MiB reed_sol_van k=8 m=3 encode spends its time."""
     import torch
 
-    from ceph_tpu_torch.ops.cuda_gf2 import apply_bytes_w8
-    from ceph_tpu_torch.ops.gf2 import bitmatrix_to_tensor
     from ceph_tpu_torch.ec.matrices import matrix_to_bitmatrix
+    from ceph_tpu_torch.ops.gf2 import gf2_apply_packedbit
 
     codec = _codec("cuda", device, technique="reed_sol_van", k=8, m=3)
     obj = np.random.default_rng(SEED + 1).integers(
         0, 256, OBJECT_SIZE, dtype=np.uint8).tobytes()
-    bm = bitmatrix_to_tensor(matrix_to_bitmatrix(codec.matrix, 8), device)
+    bm = matrix_to_bitmatrix(codec.matrix, 8)
     parts = {"host_prepare_ms": [], "h2d_ms": [], "kernel_call_ms": [],
              "d2h_ms": [], "encode_total_ms": []}
     for _ in range(TIMING_REPS):
@@ -430,7 +730,7 @@ def phase_split(device) -> None:
         dev = torch.from_numpy(chunks).to(device)
         sync(device)
         t2 = time.perf_counter()
-        out = apply_bytes_w8(bm, dev)
+        out = gf2_apply_packedbit(bm, dev)
         sync(device)
         t3 = time.perf_counter()
         out.cpu().numpy()
@@ -501,11 +801,17 @@ def main() -> int:
                 "max_abs_err": row["max_abs_err"], "match": True,
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "shape": row["shape"]})
+                "library_ms": row["library_ms"], "shape": row["shape"],
+                "path": row["path"]})
         for row in kernels:
             name = row["name"]
-            row.update(path=rows[name]["path"], paths=routes[name],
-                       popc_ms=rows[name + ".popc"]["ms"])
+            if name + ".popc" in rows:
+                row.update(paths=routes[name],
+                           popc_ms=rows[name + ".popc"]["ms"])
+            if name == "apply_packedbit":
+                row.update(ms_turns=rows[name]["ms_turns"],
+                           apply_bytes_w8_ms_turns=rows[name][
+                               "apply_bytes_w8_ms_turns"])
         torch.cuda.synchronize()
     except Exception:
         traceback.print_exc()

@@ -14,7 +14,8 @@ from ceph_tpu_torch.ec.matrices import (cauchy_good_matrix, matrix_to_bitmatrix,
                                         vandermonde_coding_matrix)
 from ceph_tpu_torch.ec.plugins.cuda import CudaPlugin
 from ceph_tpu_torch.ec.plugins.jerasure import JerasurePlugin
-from ceph_tpu_torch.ops import cuda_gf2
+from ceph_tpu_torch.ops import cuda_gf2, cuda_packedbit
+from ceph_tpu_torch.ops import gf2 as port_gf2
 
 pytestmark = pytest.mark.cuda
 
@@ -117,6 +118,14 @@ def test_gf2_matmul_route_mirror_matches_the_entry(card):
     torch.cuda.synchronize()
 
 
+def _lane_launches() -> int:
+    """Launches of every kernel a codec seam can reach: K1 and K2 of the
+    int8-plane lane, K3 and K4 of the packed-bit lane."""
+    return (cuda_gf2.apply_bytes_w8.launches + cuda_gf2.gf2_matmul.launches
+            + cuda_packedbit.xor_schedule.launches
+            + cuda_packedbit.apply_packedbit.launches)
+
+
 @pytest.mark.parametrize("profile", [
     dict(technique="reed_sol_van", k="8", m="3"),
     dict(technique="reed_sol_van", k="4", m="2", w="16"),
@@ -129,10 +138,9 @@ def test_cuda_plugin_matches_cpu_jerasure(card, profile):
     obj = np.random.default_rng(7).integers(0, 256, 1 << 18,
                                             dtype=np.uint8).tobytes()
     n = cuda.get_chunk_count()
-    launches = cuda_gf2.apply_bytes_w8.launches + cuda_gf2.gf2_matmul.launches
+    launches = _lane_launches()
     ec, ej = cuda.encode(set(range(n)), obj), cpu.encode(set(range(n)), obj)
-    assert cuda_gf2.apply_bytes_w8.launches + cuda_gf2.gf2_matmul.launches \
-        > launches
+    assert _lane_launches() > launches
     for c in range(n):
         assert np.array_equal(ec[c], ej[c])
     lost = {0, n - 1}
@@ -148,3 +156,85 @@ def test_cauchy_good_bitmatrix_kernel_matches_plain(card):
         0, 2, size=(64, 1 << 16), dtype=np.int8))
     assert torch.equal(cuda_gf2.gf2_matmul(bm, bits),
                        cuda_gf2.gf2_matmul_plain(bm, bits))
+
+
+def _program(bm: np.ndarray, cse: bool = True) -> cuda_packedbit.Program:
+    ops, outs, _ = port_gf2.xor_schedule_program(bm, cse=cse)
+    return cuda_packedbit.Program(ops, outs, bm.shape[1])
+
+
+def _rs_bitmatrix(k: int, m: int) -> np.ndarray:
+    return matrix_to_bitmatrix(vandermonde_coding_matrix(k, m, 8), 8)
+
+
+def test_xor_schedule_matches_plain(card):
+    """K3 on int32 plane words and uint8 packet rows, on every element
+    width: aligned, ragged and misaligned rows, extra operand rows, an
+    all-zero output row, a program without CSE, and k=20 m=6."""
+    rng = np.random.default_rng(11)
+    bm = _rs_bitmatrix(8, 3)
+    zero_row = bm.copy()
+    zero_row[5] = 0
+    cases = [(_program(bm), 64), (_program(bm, cse=False), 64),
+             (_program(zero_row), 64), (_program(_rs_bitmatrix(20, 6)), 160)]
+    for prog, C in cases:
+        for dtype, N, offset in ((np.int32, 4096, 0), (np.int32, 1001, 1),
+                                 (np.uint8, 65536, 0), (np.uint8, 1000, 0),
+                                 (np.uint8, 31, 3), (np.uint8, 1, 0)):
+            info = np.iinfo(dtype)
+            flat = on(card, rng.integers(info.min, info.max, (C + 2) * N
+                                         + offset, dtype=dtype))
+            rows = flat[offset:].view(C + 2, N)
+            want = cuda_packedbit.xor_schedule_plain(prog, rows)
+            assert torch.equal(cuda_packedbit.xor_schedule(prog, rows), want)
+    torch.cuda.synchronize()
+
+
+def test_packedbit_transposes_and_apply_match_plain(card):
+    """K4 (both forms), K5 and K6 against their plain versions at ragged B,
+    a misaligned base and the main path's width."""
+    rng = np.random.default_rng(12)
+    progs = [(_program(_rs_bitmatrix(8, 3)), 8), (_program(_rs_bitmatrix(20, 6)), 20)]
+    for prog, k in progs:
+        for B, offset in ((1, 0), (31, 0), (1000, 0), (4096, 1), (4096, 0),
+                          (524288, 0)):
+            flat = on(card, rng.integers(0, 256, k * B + offset, dtype=np.uint8))
+            data = flat[offset:].view(k, B)
+            planes = cuda_packedbit.to_packedbit(data)
+            assert torch.equal(planes, cuda_packedbit.to_packedbit_plain(data))
+            assert torch.equal(cuda_packedbit.from_packedbit(planes, k),
+                               cuda_packedbit.from_packedbit_plain(planes, k))
+            want = cuda_packedbit.apply_packedbit_plain(prog, data, True)
+            assert torch.equal(cuda_packedbit.apply_packedbit(prog, data),
+                               want[0])
+            got = cuda_packedbit.apply_packedbit(prog, data, resident=True)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("packedbit", ["1", "0"])
+@pytest.mark.parametrize("profile", [
+    dict(technique="reed_sol_van", k="8", m="3"),
+    dict(technique="cauchy_good", k="8", m="3", packetsize="2048"),
+])
+def test_seam_identity_with_lane_on_and_off(card, monkeypatch, packedbit,
+                                            profile):
+    """plugin=cuda chunks equal CPU plugin=jerasure's with the packed-bit lane
+    on and off, and the lane's kernels launch only when it is on."""
+    monkeypatch.setenv("CEPH_TPU_PACKEDBIT", packedbit)
+    cuda = CudaPlugin().factory(dict(profile, plugin="cuda"))
+    cpu = JerasurePlugin().factory(dict(profile, plugin="jerasure"))
+    obj = np.random.default_rng(13).integers(0, 256, 1 << 20,
+                                             dtype=np.uint8).tobytes()
+    lane = (cuda_packedbit.xor_schedule.launches
+            + cuda_packedbit.apply_packedbit.launches)
+    ec, ej = cuda.encode(set(range(11)), obj), cpu.encode(set(range(11)), obj)
+    out = cuda.decode({1, 5, 9}, {c: ec[c] for c in ec if c not in (1, 5, 9)},
+                      len(ec[0]))
+    launched = (cuda_packedbit.xor_schedule.launches
+                + cuda_packedbit.apply_packedbit.launches) - lane
+    assert (launched > 0) == (packedbit == "1")
+    for c in range(11):
+        assert np.array_equal(ec[c], ej[c])
+    for c in (1, 5, 9):
+        assert np.array_equal(out[c], ej[c])

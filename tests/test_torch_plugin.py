@@ -187,15 +187,21 @@ def test_registry_resolves_cuda_plugin_on_its_default_device(monkeypatch):
     assert ei.value.errno_code == -errno.ENOENT
 
 
-def test_dispatch_error_raises_eio_and_counts(monkeypatch):
+@pytest.mark.parametrize("packedbit,entry", [
+    ("1", "gf2_apply_packedbit"),
+    ("0", "gf2_apply_bytes"),
+])
+def test_dispatch_error_raises_eio_and_counts(monkeypatch, packedbit, entry):
     """A failing dispatch reaches the caller as -EIO with its cause; nothing
-    falls back to another path."""
+    falls back to another path.  On either w=8 lane: the packed-bit entry
+    with the switch on (the default), gf2_apply_bytes with it off."""
+    monkeypatch.setenv("CEPH_TPU_PACKEDBIT", packedbit)
     codec = port(technique="reed_sol_van", k=4, m=2)
 
     def boom(*a, **kw):
         raise RuntimeError("injected dispatch failure")
 
-    monkeypatch.setattr(cuda_plugin, "gf2_apply_bytes", boom)
+    monkeypatch.setattr(cuda_plugin, entry, boom)
     before = PLUGIN_PERF.get("device_failed")
     with pytest.raises(ErasureCodeError) as ei:
         codec.encode(set(range(6)), payload(4096))
