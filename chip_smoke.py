@@ -436,7 +436,8 @@ def phase_packedbit(device, bms, rng, rows) -> None:
                 f"{str(rows_in.dtype)[6:]}{label}",
                 (prog.C + prog.R) * rb, n_xors * -(-rb // 4), **kw)
 
-    k3("cauchy_good", rand(np.uint8, (64, main_cols)), "", timed=True,
+    # a 4 MiB cauchy_good k=8 m=3 object: 64 packet rows of 64 KiB
+    k3("cauchy_good", rand(np.uint8, (64, main_cols // 8)), "", timed=True,
        report=True, floor=True)
     k3("rs_decode3_resident", rand(np.int32, (88, main_cols // 32)), "",
        timed=True, floor=True)
