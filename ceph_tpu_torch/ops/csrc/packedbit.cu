@@ -21,17 +21,23 @@
 //   XORs are a few hundred shared-memory operations per element.
 // * apply_packedbit (K4) <- gf2_apply_packedbit and, with `planes`,
 //   gf2_encode_packedbit_resident: the one-shot lane in one launch.  A block
-//   takes 32 * threads columns of the k chunks: it loads them into shared
-//   memory with 16-byte loads, turns them into u32 plane words (a warp's
-//   __ballot_sync over bit x of 32 lanes' bytes is the word of plane j*8+x,
-//   lane b holding column 32i+b), runs the program on the words (thread i
-//   owns word column i), and packs its own output words back to bytes (a
-//   nibble of each of the 8 plane words spread to 4 bytes by one multiply).
+//   takes 32 * threads columns of the k chunks: it copies them into shared
+//   memory with 16-byte asynchronous copies (every row in flight at once);
+//   thread i then turns the 32 bytes of its own word column of each row into
+//   8 plane words in registers (four 8x8 bit transposes and byte
+//   permutes), runs the program on its words, and packs its output words
+//   back to bytes the same way.
 //   Bound: bytes, k*B read and out*B written (4 MiB + 1.5 MiB at the main
-//   shape: 1.72 us), the same as apply_bytes_w8's.
-// * to_packedbit (K5) / from_packedbit (K6): the two transposes alone, from
-//   K4's device functions.  Bound: bytes, each byte read once and written
-//   once in the other layout (2 * 4 MiB at the main shape: 2.5 us).
+//   shape: 1.72 us), the same as apply_bytes_w8's.  A first version
+//   transposed with warp ballots (__ballot_sync over bit x of 32 lanes'
+//   bytes is one plane word): about one warp instruction a byte, against
+//   about one per 10 bytes here, and at the main shape each SM runs about
+//   one warp a scheduler, so instruction count per warp is the time
+//   (PERF.md, PR 5).
+// * to_packedbit (K5) / from_packedbit (K6): the two transposes alone, one
+//   word column a thread, from K4's device functions.  Bound: bytes, each
+//   byte read once and written once in the other layout (2 * 4 MiB at the
+//   main shape: 2.5 us).
 //
 // Every kernel masks its own ragged edge: pad columns read as zero and only
 // the real columns are written, so nothing is padded on the host.
@@ -41,8 +47,6 @@
 #include "packedbit.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline long long prog_bytes(int n_instr) {
   return ((long long)n_instr * 8 + 15) / 16 * 16;
@@ -63,6 +67,21 @@ __device__ __forceinline__ V vzero() { return V(0); }
 template <>
 __device__ __forceinline__ uint4 vzero<uint4>() { return make_uint4(0, 0, 0, 0); }
 
+// Asynchronous 16- and 4-byte copies from device to shared memory, so that
+// every row of a block's loads is in flight at once (cp.async.wait_all, then
+// a barrier, before the data is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Copy the instruction list into shared memory (caller syncs).
 __device__ __forceinline__ void stage_program(const int2* __restrict__ prog,
                                               int n_instr, int2* sprog) {
@@ -71,14 +90,18 @@ __device__ __forceinline__ void stage_program(const int2* __restrict__ prog,
 
 // Walk the program over this thread's column of vals ([n_vals][T], column
 // tid), handing each finished output row to store(row, value).  Only the
-// thread's own column is touched, so no barrier is needed inside.
+// thread's own column is touched, so no barrier is needed inside.  Each
+// step is a chain of shared-memory loads, so the next instruction is read
+// one step ahead, off that chain.
 template <typename V, typename Store>
 __device__ __forceinline__ void run_program(const int2* sprog, int n_instr,
                                             V* vals, int T, int tid,
                                             Store store) {
   V acc = vzero<V>();
+  int2 next = sprog[0];
   for (int p = 0; p < n_instr; ++p) {
-    const int2 ins = sprog[p];
+    const int2 ins = next;
+    next = sprog[p + 1 < n_instr ? p + 1 : p];
     const int op = ins.x & 0xffff;
     const int dst = ins.x >> 16;
     const int a = ins.y & 0xffff;
@@ -94,7 +117,8 @@ __device__ __forceinline__ void run_program(const int2* sprog, int n_instr,
 }
 
 // Columns [c0, c0 + width) of one row of B bytes into shared memory, zeros
-// past B.  vec16: the row base and B are multiples of 16 (16-byte loads).
+// past B.  vec16: the row base and B are multiples of 16 (16-byte
+// asynchronous copies; the caller waits for them).
 __device__ __forceinline__ void load_tile_row(const uint8_t* __restrict__ row,
                                               long long B, long long c0,
                                               int width, uint8_t* dst,
@@ -104,8 +128,10 @@ __device__ __forceinline__ void load_tile_row(const uint8_t* __restrict__ row,
 #pragma unroll 2
     for (int v = threadIdx.x; v < width / 16; v += blockDim.x) {
       const long long c = c0 + 16LL * v;
-      d[v] = c < B ? __ldg(reinterpret_cast<const uint4*>(row + c))
-                   : make_uint4(0, 0, 0, 0);
+      if (c < B)
+        cp_async16(d + v, row + c);
+      else
+        d[v] = make_uint4(0, 0, 0, 0);
     }
   } else {
     for (int c = threadIdx.x; c < width; c += blockDim.x) {
@@ -115,47 +141,100 @@ __device__ __forceinline__ void load_tile_row(const uint8_t* __restrict__ row,
   }
 }
 
-// The bytes of `rows` tile rows (each 32*T bytes) -> plane words: word i of
-// plane j*8+x (planes[(j*8+x)*T + i]) holds bit x of bytes 32i..32i+31 of
-// row j, byte 32i+b in bit b.  One warp per (j, i): lane b reads byte 32i+b,
-// and ballot x of the warp is the word of plane x.  T is a multiple of 32.
-__device__ __forceinline__ void ballot_transpose(const uint8_t* tile, int rows,
-                                                 int T, uint32_t* planes) {
-  const int lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  for (int p = threadIdx.x >> 5; p < rows * T; p += nw) {
-    const int j = p / T, i = p - j * T;
-    const uint32_t v = tile[(long long)j * 32 * T + 32 * i + lane];
-    uint32_t mine = 0;
+// 8x8 bit transpose of the eight bytes lo (bytes 0-3) and hi (bytes 4-7):
+// bit x of byte b moves to bit b of byte x.  Three rounds swap the
+// off-diagonal 1x1, 2x2 and 4x4 blocks (shifts 7, 14 and 28 of the 64-bit
+// word; the last round crosses the two halves).
+__device__ __forceinline__ void transpose8(uint32_t& lo, uint32_t& hi) {
+  uint32_t t;
+  t = (lo ^ (lo >> 7)) & 0x00AA00AAu;
+  lo ^= t ^ (t << 7);
+  t = (hi ^ (hi >> 7)) & 0x00AA00AAu;
+  hi ^= t ^ (t << 7);
+  t = (lo ^ (lo >> 14)) & 0x0000CCCCu;
+  lo ^= t ^ (t << 14);
+  t = (hi ^ (hi >> 14)) & 0x0000CCCCu;
+  hi ^= t ^ (t << 14);
+  t = (lo ^ (hi << 4)) & 0xF0F0F0F0u;
+  lo ^= t;
+  hi ^= t >> 4;
+}
+
+// Byte x of each of s0..s3, in that order, as one word.
+__device__ __forceinline__ uint32_t gather4(uint32_t s0, uint32_t s1,
+                                            uint32_t s2, uint32_t s3, int x) {
+  const uint32_t sel = x | ((x + 4) << 4);
+  return __byte_perm(__byte_perm(s0, s1, sel), __byte_perm(s2, s3, sel),
+                     0x5410);
+}
+
+// The 32 bytes of one word column of one row (v: eight little-endian words,
+// column c in byte c) -> its 8 plane words (w[x]: bit x of byte c in bit c).
+// Each group of 8 bytes is transposed in registers, and byte x of the four
+// groups' results is plane x's word.  A thread does this for its own column:
+// no other lane and no shared memory take part.
+__device__ __forceinline__ void bytes_to_words(const uint32_t v[8],
+                                               uint32_t w[8]) {
+  uint32_t lo[4], hi[4];
 #pragma unroll
-    for (int x = 0; x < 8; ++x) {
-      const uint32_t word = __ballot_sync(kFull, (v >> x) & 1u);
-      if (lane == x) mine = word;
-    }
-    if (lane < 8) planes[(j * 8 + lane) * T + i] = mine;
+  for (int g = 0; g < 4; ++g) {
+    lo[g] = v[2 * g];
+    hi[g] = v[2 * g + 1];
+    transpose8(lo[g], hi[g]);
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    w[x] = gather4(lo[0], lo[1], lo[2], lo[3], x);
+    w[x + 4] = gather4(hi[0], hi[1], hi[2], hi[3], x);
   }
 }
 
-// Bit q of a nibble to bit 8q: the four copies n << {0, 7, 14, 21} do not
-// overlap, so the product has no carries.
-__device__ __forceinline__ uint32_t spread4(uint32_t n) {
-  return (n * 0x00204081u) & 0x01010101u;
+// The inverse: 8 plane words -> the 32 bytes of their column, as eight
+// little-endian words.
+__device__ __forceinline__ void words_to_bytes(const uint32_t w[8],
+                                               uint32_t v[8]) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    uint32_t lo = gather4(w[0], w[1], w[2], w[3], g);
+    uint32_t hi = gather4(w[4], w[5], w[6], w[7], g);
+    transpose8(lo, hi);
+    v[2 * g] = lo;
+    v[2 * g + 1] = hi;
+  }
+}
+
+// Columns col..col+31 of one row of B bytes, zeros past B.  vec16: the row
+// base and B are multiples of 16 (two 16-byte loads for a whole column).
+__device__ __forceinline__ void load32(const uint8_t* __restrict__ row,
+                                       long long col, long long B, bool vec16,
+                                       uint32_t v[8]) {
+  if (vec16 && col + 32 <= B) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(row + col));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(row + col + 16));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const long long g = col + 4 * q + c;
+      if (g < B) word |= static_cast<uint32_t>(__ldg(row + g)) << (8 * c);
+    }
+    v[q] = word;
+  }
 }
 
 // Eight plane words of one word column (wx[x] = plane x) -> the 32 bytes of
-// columns col..col+31 of one output row of B bytes; bit x of byte c is bit c
-// of wx[x].  vec16: the row base and B are multiples of 16.
+// columns col..col+31 of one output row of B bytes; only columns below B
+// are written.  vec16: the row base and B are multiples of 16.
 __device__ __forceinline__ void pack_store(const uint32_t wx[8], uint8_t* row,
                                            long long col, long long B,
                                            bool vec16) {
   uint32_t u[8];
-#pragma unroll
-  for (int g = 0; g < 8; ++g) {
-    uint32_t acc = 0;
-#pragma unroll
-    for (int x = 0; x < 8; ++x) acc |= spread4((wx[x] >> (4 * g)) & 0xfu) << x;
-    u[g] = acc;  // bytes of columns col+4g .. col+4g+3
-  }
+  words_to_bytes(wx, u);
   if (vec16 && col + 32 <= B) {
     uint4* d = reinterpret_cast<uint4*>(row + col);
     d[0] = make_uint4(u[0], u[1], u[2], u[3]);
@@ -180,9 +259,17 @@ __global__ void xor_schedule_kernel(const int2* __restrict__ prog, int n_instr,
   const long long e = (long long)blockIdx.x * T + tid;
   const bool live = e < E;
   stage_program(prog, n_instr, sprog);
+  if (!live) {
+    for (int r = 0; r < C; ++r) vals[r * T + tid] = vzero<V>();
+  } else if constexpr (sizeof(V) == 16) {
+    for (int r = 0; r < C; ++r) cp_async16(&vals[r * T + tid], &in[r * E + e]);
+  } else if constexpr (sizeof(V) == 4) {
+    for (int r = 0; r < C; ++r) cp_async4(&vals[r * T + tid], &in[r * E + e]);
+  } else {
 #pragma unroll 8
-  for (int r = 0; r < C; ++r)
-    vals[r * T + tid] = live ? in[r * E + e] : vzero<V>();
+    for (int r = 0; r < C; ++r) vals[r * T + tid] = in[r * E + e];
+  }
+  cp_async_wait_all();
   __syncthreads();
   run_program<V>(sprog, n_instr, vals, T, tid, [&](int row, V v) {
     if (live) out[row * E + e] = v;
@@ -228,9 +315,20 @@ __global__ void apply_packedbit_kernel(const int2* __restrict__ prog,
   for (int j = 0; j < k; ++j)
     load_tile_row(data + j * B, B, c0, width, tile + (long long)j * width,
                   vec16_in);
+  cp_async_wait_all();
   __syncthreads();
-  ballot_transpose(tile, k, T, vals);
-  __syncthreads();
+  // each thread turns its own 32 columns of each row into plane words
+  for (int j = 0; j < k; ++j) {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        tile + (long long)j * width + 32 * tid);
+    const uint4 a = src[0], b = src[1];
+    const uint32_t v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    uint32_t wx[8];
+    bytes_to_words(v, wx);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) vals[(j * 8 + x) * T + tid] = wx[x];
+  }
+  __syncthreads();  // the output words reuse the tile's room
   const long long w = (long long)blockIdx.x * T + tid;
   const bool live = w < W;
   if (planes != nullptr && live)
@@ -255,23 +353,15 @@ __global__ void apply_packedbit_kernel(const int2* __restrict__ prog,
 __global__ void to_packedbit_kernel(const uint8_t* __restrict__ data,
                                     long long B, uint32_t* __restrict__ planes,
                                     bool vec16) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int T = blockDim.x, tid = threadIdx.x;
-  const int j = blockIdx.y;
-  uint8_t* tile = smem;
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem + 32 * T);
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long W = (B + 31) / 32;
-  load_tile_row(data + j * B, B, (long long)blockIdx.x * 32 * T, 32 * T,
-                tile, vec16);
-  __syncthreads();
-  ballot_transpose(tile, 1, T, words);
-  __syncthreads();
-  const long long w = (long long)blockIdx.x * T + tid;
-  if (w < W) {
+  const int j = blockIdx.y;
+  if (w >= W) return;
+  uint32_t v[8], wx[8];
+  load32(data + j * B, 32 * w, B, vec16, v);
+  bytes_to_words(v, wx);
 #pragma unroll
-    for (int x = 0; x < 8; ++x)
-      planes[((long long)j * 8 + x) * W + w] = words[x * T + tid];
-  }
+  for (int x = 0; x < 8; ++x) planes[((long long)j * 8 + x) * W + w] = wx[x];
 }
 
 // ---------------------------------------------------------------- K6 --
@@ -351,8 +441,7 @@ extern "C" int ctt_to_packedbit(const uint8_t* data, int n, long long B,
     return cudaErrorInvalidValue;
   const long long W = (B + 31) / 32;
   const dim3 grid((unsigned)((W + threads - 1) / threads), (unsigned)n);
-  to_packedbit_kernel<<<grid, threads, 64 * threads,
-                        static_cast<cudaStream_t>(stream)>>>(
+  to_packedbit_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       data, B, planes, aligned(data, 16) && B % 16 == 0);
   return cudaGetLastError();
 }

@@ -5,8 +5,9 @@ the same arrays go to both packages.  Exact equality throughout: this is
 integer GF(2).  Plane words are compared as u32 (`.numpy().view(np.uint32)`).
 
 Also numpy models of what the CUDA kernels do that the plain versions do not:
-K4's ballot transpose lane by lane, its multiply-spread pack, and the encoded
-instruction list with its liveness-allocated temp slots."""
+K4's register transposes (8x8 bit transposes and byte permutes, word by
+word) and the encoded instruction list with its liveness-allocated temp
+slots."""
 
 import functools
 from collections import OrderedDict
@@ -318,61 +319,81 @@ def test_packedbit_switch_off_never_dispatches_the_lane(monkeypatch, profile):
 
 # -- numpy models of the kernels ---------------------------------------------
 
-def ballot_transpose_model(tile: np.ndarray, T: int) -> np.ndarray:
-    """csrc/packedbit.cu ballot_transpose, lane by lane: warp pair (j, i),
-    lane b holds byte 32i+b of tile row j; ballot x sets bit b from bit x of
-    lane b's byte; lane x stores it as word i of plane j*8+x."""
-    k = tile.shape[0]
-    planes = np.zeros((k * 8, T), dtype=np.uint32)
-    for j in range(k):
-        for i in range(T):
-            lanes = tile[j, 32 * i:32 * i + 32].astype(np.uint32)
+M32 = 0xFFFFFFFF
+
+
+def transpose8_model(lo: int, hi: int):
+    """csrc/packedbit.cu transpose8 on Python ints, 32-bit wrap included."""
+    t = (lo ^ (lo >> 7)) & 0x00AA00AA
+    lo ^= t ^ ((t << 7) & M32)
+    t = (hi ^ (hi >> 7)) & 0x00AA00AA
+    hi ^= t ^ ((t << 7) & M32)
+    t = (lo ^ (lo >> 14)) & 0x0000CCCC
+    lo ^= t ^ ((t << 14) & M32)
+    t = (hi ^ (hi >> 14)) & 0x0000CCCC
+    hi ^= t ^ ((t << 14) & M32)
+    t = (lo ^ ((hi << 4) & M32)) & 0xF0F0F0F0
+    return lo ^ t, hi ^ (t >> 4)
+
+
+def byte_perm(x: int, y: int, s: int) -> int:
+    """__byte_perm: byte i of the result is byte (nibble i of s) of y:x."""
+    pool = (y << 32) | x
+    return sum(((pool >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+               for i in range(4))
+
+
+def gather4_model(s0, s1, s2, s3, x):
+    sel = x | ((x + 4) << 4)
+    return byte_perm(byte_perm(s0, s1, sel), byte_perm(s2, s3, sel), 0x5410)
+
+
+def bytes_to_words_model(v):
+    """bytes_to_words: eight little-endian words of 32 columns -> the eight
+    plane words of that column."""
+    lo, hi = zip(*(transpose8_model(v[2 * g], v[2 * g + 1]) for g in range(4)))
+    return ([gather4_model(*lo, x) for x in range(4)]
+            + [gather4_model(*hi, x) for x in range(4)])
+
+
+def words_to_bytes_model(w):
+    """words_to_bytes: the inverse."""
+    v = []
+    for g in range(4):
+        v += transpose8_model(gather4_model(*w[:4], g), gather4_model(*w[4:], g))
+    return v
+
+
+def test_transpose8_model_is_the_bit_transpose():
+    rng = np.random.default_rng(3)
+    for lo, hi in rng.integers(0, 2**32, (200, 2), dtype=np.uint64).tolist():
+        tlo, thi = transpose8_model(lo, hi)
+        src = (hi << 32) | lo
+        dst = (thi << 32) | tlo
+        for b in range(8):
             for x in range(8):
-                ballot = 0
-                for b in range(32):
-                    ballot |= int((lanes[b] >> x) & 1) << b
-                planes[j * 8 + x, i] = ballot
-    return planes
-
-
-def load_tile_model(data: np.ndarray, c0: int, width: int) -> np.ndarray:
-    """load_tile_row for every row: columns [c0, c0 + width), zeros past B."""
-    k, B = data.shape
-    tile = np.zeros((k, width), dtype=np.uint8)
-    n = max(0, min(B - c0, width))
-    tile[:, :n] = data[:, c0:c0 + n]
-    return tile
-
-
-def pack_store_model(wx: np.ndarray) -> np.ndarray:
-    """pack_store's arithmetic for one word column: eight plane words -> 32
-    bytes, nibble g of each word spread by (n * 0x00204081) & 0x01010101."""
-    u = np.zeros(8, dtype=np.uint64)
-    for g in range(8):
-        acc = 0
-        for x in range(8):
-            n = (int(wx[x]) >> (4 * g)) & 0xF
-            acc |= ((n * 0x00204081) & 0x01010101) << x
-        u[g] = acc
-    return np.array([(int(u[c >> 2]) >> (8 * (c & 3))) & 0xFF
-                     for c in range(32)], dtype=np.uint8)
+                assert (src >> (8 * b + x)) & 1 == (dst >> (8 * x + b)) & 1
 
 
 @pytest.mark.parametrize("B", [1000, 2048])
 def test_k4_transposes_model_against_plain(B):
-    """K4's ballot transpose over 32-thread blocks (B = 1000: the ragged
-    last block reads zeros) and its pack give the plain versions' words and
-    bytes."""
-    T = 32
+    """K4's per-thread transposes (load32's zero fill past B, bytes_to_words,
+    words_to_bytes) give the plain versions' words and bytes."""
     data = np.random.default_rng(B).integers(0, 256, (3, B), dtype=np.uint8)
     W = -(-B // 32)
-    want = u32(kern.to_packedbit_plain(torch.from_numpy(data)))
-    got = np.concatenate([
-        ballot_transpose_model(load_tile_model(data, blk * 32 * T, 32 * T), T)
-        for blk in range(-(-W // T))], axis=1)[:, :W]
-    assert np.array_equal(got, want)
-    back = np.stack([np.concatenate([pack_store_model(got[o * 8:o * 8 + 8, w])
-                                     for w in range(W)]) for o in range(3)])
+    padded = np.zeros((3, W * 32), dtype=np.uint8)
+    padded[:, :B] = data
+    cols = padded.reshape(3, W, 8, 4).view(np.uint32).reshape(3, W, 8)
+    got = np.zeros((24, W), dtype=np.uint32)
+    for j in range(3):
+        for w in range(W):
+            got[j * 8:j * 8 + 8, w] = bytes_to_words_model(cols[j, w].tolist())
+    assert np.array_equal(got, u32(kern.to_packedbit_plain(torch.from_numpy(data))))
+    back = np.zeros((3, W, 8), dtype=np.uint32)
+    for o in range(3):
+        for w in range(W):
+            back[o, w] = words_to_bytes_model(got[o * 8:o * 8 + 8, w].tolist())
+    back = back.view(np.uint8).reshape(3, W * 32)
     assert np.array_equal(back[:, :B], data)
     assert np.array_equal(back, kern.from_packedbit_plain(
         torch.from_numpy(got.view(np.int32)), 3).numpy())
