@@ -90,29 +90,34 @@ __device__ __forceinline__ void stage_program(const int2* __restrict__ prog,
 
 // Walk the program over this thread's column of vals ([n_vals][T], column
 // tid), handing each finished output row to store(row, value).  Only the
-// thread's own column is touched, so no barrier is needed inside.  Each
-// step is a chain of shared-memory loads, so the next instruction is read
-// one step ahead, off that chain.
+// thread's own column is touched, so no barrier is needed inside.  With at
+// most a warp a scheduler, the chain of shared-memory loads is the time, so
+// step p+1's operands are loaded before step p stores its result (the host's
+// schedule never lets a step read what the step before it wrote), and the
+// instruction after that is read meanwhile.  Every step takes the same path:
+// value[d] = value[a] ^ value[b], folded into the accumulator too.
 template <typename V, typename Store>
 __device__ __forceinline__ void run_program(const int2* sprog, int n_instr,
                                             V* vals, int T, int tid,
                                             Store store) {
+  int2 cur = sprog[0];
+  int2 nxt = sprog[n_instr > 1 ? 1 : 0];
+  V xa = vals[(cur.x & 0xffff) * T + tid];
+  V xb = vals[(cur.x >> 16) * T + tid];
   V acc = vzero<V>();
-  int2 next = sprog[0];
   for (int p = 0; p < n_instr; ++p) {
-    const int2 ins = next;
-    next = sprog[p + 1 < n_instr ? p + 1 : p];
-    const int op = ins.x & 0xffff;
-    const int dst = ins.x >> 16;
-    const int a = ins.y & 0xffff;
-    if (op == CTT_PB_OP_TEMP) {
-      const int b = ins.y >> 16;
-      vals[dst * T + tid] = vxor(vals[a * T + tid], vals[b * T + tid]);
-    } else {
-      const V x = (op & CTT_PB_ZERO) ? vzero<V>() : vals[a * T + tid];
-      acc = (op & CTT_PB_FIRST) ? x : vxor(acc, x);
-      if (op & CTT_PB_LAST) store(dst, acc);
-    }
+    const int2 after = sprog[p + 2 < n_instr ? p + 2 : n_instr - 1];
+    const V ya = vals[(nxt.x & 0xffff) * T + tid];
+    const V yb = vals[(nxt.x >> 16) * T + tid];
+    const V x = vxor(xa, xb);
+    vals[(cur.y & 0xffff) * T + tid] = x;
+    const int meta = cur.y >> 16;
+    acc = (meta & CTT_PB_FIRST) ? x : vxor(acc, x);
+    if (meta & CTT_PB_LAST) store(meta >> 2, acc);
+    xa = ya;
+    xb = yb;
+    cur = nxt;
+    nxt = after;
   }
 }
 
@@ -250,7 +255,8 @@ __device__ __forceinline__ void pack_store(const uint32_t wx[8], uint8_t* row,
 
 template <typename V>
 __global__ void xor_schedule_kernel(const int2* __restrict__ prog, int n_instr,
-                                    int C, const V* __restrict__ in,
+                                    int C, int n_vals,
+                                    const V* __restrict__ in,
                                     V* __restrict__ out, long long E) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = blockDim.x, tid = threadIdx.x;
@@ -269,6 +275,7 @@ __global__ void xor_schedule_kernel(const int2* __restrict__ prog, int n_instr,
 #pragma unroll 8
     for (int r = 0; r < C; ++r) vals[r * T + tid] = in[r * E + e];
   }
+  vals[(n_vals - 2) * T + tid] = vzero<V>();  // ZERO
   cp_async_wait_all();
   __syncthreads();
   run_program<V>(sprog, n_instr, vals, T, tid, [&](int row, V v) {
@@ -278,7 +285,8 @@ __global__ void xor_schedule_kernel(const int2* __restrict__ prog, int n_instr,
 
 template <typename V>
 cudaError_t launch_xor_schedule(const int16_t* prog, int n_instr, int C,
-                                const void* in, void* out, long long E,
+                                int n_vals, const void* in, void* out,
+                                long long E,
                                 int threads, size_t smem, cudaStream_t stream) {
   auto kernel = xor_schedule_kernel<V>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -286,7 +294,7 @@ cudaError_t launch_xor_schedule(const int16_t* prog, int n_instr, int C,
   if (err != cudaSuccess) return err;
   const long long blocks = (E + threads - 1) / threads;
   kernel<<<(unsigned)blocks, threads, smem, stream>>>(
-      reinterpret_cast<const int2*>(prog), n_instr, C,
+      reinterpret_cast<const int2*>(prog), n_instr, C, n_vals,
       static_cast<const V*>(in), static_cast<V*>(out), E);
   return cudaGetLastError();
 }
@@ -328,6 +336,7 @@ __global__ void apply_packedbit_kernel(const int2* __restrict__ prog,
 #pragma unroll
     for (int x = 0; x < 8; ++x) vals[(j * 8 + x) * T + tid] = wx[x];
   }
+  vals[(n_vals - 2) * T + tid] = 0;  // ZERO
   __syncthreads();  // the output words reuse the tile's room
   const long long w = (long long)blockIdx.x * T + tid;
   const bool live = w < W;
@@ -392,7 +401,7 @@ extern "C" int ctt_xor_schedule(const int16_t* prog, int n_instr, int C,
                                 int n_vals, const void* in, void* out,
                                 long long row_bytes, int vec, int threads,
                                 void* stream) {
-  if (!valid_threads(threads) || n_instr < 1 || C < 1 || n_vals < C ||
+  if (!valid_threads(threads) || n_instr < 1 || C < 1 || n_vals < C + 2 ||
       (vec != 16 && vec != 4 && vec != 1) || row_bytes % vec != 0 ||
       !aligned(in, vec) || !aligned(out, vec) || !aligned(prog, 8))
     return cudaErrorInvalidValue;
@@ -402,10 +411,13 @@ extern "C" int ctt_xor_schedule(const int16_t* prog, int n_instr, int C,
   if (E == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec == 16)
-    return launch_xor_schedule<uint4>(prog, n_instr, C, in, out, E, threads, smem, s);
+    return launch_xor_schedule<uint4>(prog, n_instr, C, n_vals, in, out, E,
+                                   threads, smem, s);
   if (vec == 4)
-    return launch_xor_schedule<uint32_t>(prog, n_instr, C, in, out, E, threads, smem, s);
-  return launch_xor_schedule<uint8_t>(prog, n_instr, C, in, out, E, threads, smem, s);
+    return launch_xor_schedule<uint32_t>(prog, n_instr, C, n_vals, in, out, E,
+                                   threads, smem, s);
+  return launch_xor_schedule<uint8_t>(prog, n_instr, C, n_vals, in, out, E,
+                                   threads, smem, s);
 }
 
 extern "C" int ctt_apply_packedbit(const int16_t* prog, int n_instr, int k,
@@ -414,7 +426,7 @@ extern "C" int ctt_apply_packedbit(const int16_t* prog, int n_instr, int k,
                                    uint8_t* out, uint32_t* planes, int threads,
                                    void* stream) {
   if (!valid_threads(threads) || n_instr < 1 || k < 1 || out_rows < 1 ||
-      n_vals < k * 8 || B < 1 || !aligned(prog, 8) ||
+      n_vals < k * 8 + 2 || B < 1 || !aligned(prog, 8) ||
       (planes != nullptr && !aligned(planes, 4)))
     return cudaErrorInvalidValue;
   const long long smem = prog_bytes(n_instr) + (long long)n_vals * threads * 4 +

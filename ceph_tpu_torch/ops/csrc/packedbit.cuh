@@ -3,24 +3,23 @@
 // with the host.
 //
 // A GF(2) bit-matrix runs as a straight-line XOR program (xor_schedule_program
-// in ops/gf2.py), encoded once per matrix on the host as int16 [n, 4]
-// instructions (op, dst, a, b), read by the kernels as int2 words
-// {op | dst << 16, a | b << 16}.  Values are addressed by index: 0..C-1 are
-// the C input rows, C + s is temp slot s (slots are reused by liveness, so a
-// program of many temps keeps few alive).
-//   op == CTT_PB_OP_TEMP            value[dst] = value[a] ^ value[b]
-//   op &  CTT_PB_OP_OUT             acc = value[a] (FIRST) or acc ^= value[a];
-//                                   ZERO reads 0 instead of value[a]; LAST
-//                                   stores acc as output row dst
+// in ops/gf2.py), encoded once per matrix on the host (cuda_packedbit.py
+// encode_program) as int16 [n, 4] steps (a, b, d, meta), read by the kernels
+// as int2 words {a | b << 16, d | meta << 16}.  Values are addressed by index:
+// 0..C-1 are the C input rows, C + s is temp slot s (slots are reused by
+// liveness), then ZERO (n_vals - 2, always zero) and DUMMY (n_vals - 1,
+// written, never read).  Every step does the same:
+//   x = value[a] ^ value[b];  value[d] = x;
+//   acc = (meta & FIRST) ? x : acc ^ x;  if (meta & LAST) row meta >> 2 = acc
+// A temp step writes its slot; an output step writes DUMMY and folds one or
+// two terms into the row being built.  No step reads the value the step
+// before it wrote, so the kernels load a step's operands early.
 #pragma once
 
 #include <cstdint>
 
-#define CTT_PB_OP_TEMP 0
-#define CTT_PB_OP_OUT 1
-#define CTT_PB_FIRST 2
-#define CTT_PB_LAST 4
-#define CTT_PB_ZERO 8
+#define CTT_PB_FIRST 1
+#define CTT_PB_LAST 2
 
 // Shared memory a block may use on an H100 (227 KB).
 #define CTT_PB_MAX_SMEM 232448
@@ -32,7 +31,7 @@ extern "C" {
 // K3: the program over the first C rows of `in` ([>= C, row_bytes] bytes of
 // any element type) -> `out` [R, row_bytes].  Each thread owns one element of
 // `vec` bytes (16, 4 or 1) of every row; `in`, `out` and row_bytes must be
-// multiples of vec.  n_vals = C + slots.  Returns a cudaError_t value.
+// multiples of vec.  n_vals = C + slots + 2.  Returns a cudaError_t value.
 int ctt_xor_schedule(const int16_t* prog, int n_instr, int C, int n_vals,
                      const void* in, void* out, long long row_bytes, int vec,
                      int threads, void* stream);

@@ -45,13 +45,14 @@ import torch
 
 from ceph_tpu_torch.ops import build
 
-#: instruction opcodes and flags (csrc/packedbit.cuh)
-OP_TEMP, OP_OUT, FIRST, LAST, ZERO = 0, 1, 2, 4, 8
+#: step flags (csrc/packedbit.cuh): the step starts or ends an output row
+FIRST, LAST = 1, 2
 
 #: shared memory a block may use on an H100 (csrc/packedbit.cuh)
 MAX_SMEM = 232448
-#: value indices and output rows travel as int16
+#: value indices travel as int16, output rows in 13 bits beside the flags
 MAX_INDEX = 32767
+MAX_ROWS = 8191
 #: threads a block of K5 and K6
 TRANSPOSE_THREADS = 128
 
@@ -60,67 +61,108 @@ APPLY_ROUTES = ("apply", "resident")
 _VEC = {"v16": 16, "v4": 4, "b1": 1}
 
 
-def encode_program(ops: Sequence[Tuple[int, int]], outs: Sequence[List[int]],
-                   C: int) -> Tuple[np.ndarray, int]:
-    """(ops, outs) of xor_schedule_program over C inputs -> (int16 [n, 4]
-    instructions (op, dst, a, b), number of temp slots).
+def schedule_steps(ops: Sequence[Tuple[int, int]],
+                   outs: Sequence[List[int]], C: int) -> List[Tuple]:
+    """The order the kernel walks (ops, outs) in, as steps over terms: each
+    step XORs two terms (None reads zero) into a temp, or into the output
+    row being accumulated.
 
-    Each output row is emitted right after the newest temp it reads, so that
-    temps die early; a temp's slot is freed after its last use (before the
-    destination of that instruction is allocated, which may reuse it) and
-    the lowest free slot is taken first.  Value index v < C is input row v,
-    C + s is slot s."""
+    The kernel loads a step's operands before the previous step has stored
+    its result, so no step may read the temp the step before it wrote.  Items
+    are emitted greedily: first any ready output row (one whose temps are all
+    computed; its terms in ascending order, two a step, so the newest temp
+    comes last) whose first step does not read the temp just written, else
+    the next temp if it does not, else a step that does nothing.  Output rows
+    are emitted as soon as they are ready, so that temps die early.
+    Returns steps ("t", i, a, b), ("o", row, a, b, first, last), ("nop",)."""
     ready: List[List[int]] = [[] for _ in range(len(ops) + 1)]
     for r, terms in enumerate(outs):
         ready[max((t - C + 1 for t in terms if t >= C), default=0)].append(r)
-    seq = [("o", r) for r in ready[0]]
-    for i in range(len(ops)):
-        seq.append(("t", i))
-        seq += [("o", r) for r in ready[i + 1]]
+    row_steps = []
+    for terms in outs:
+        pairs = [tuple(terms[i:i + 2]) + (None,) * (i + 2 > len(terms))
+                 for i in range(0, len(terms), 2)] or [(None, None)]
+        row_steps.append(pairs)
+    pending = list(ready[0])
+    steps: List[Tuple] = []
+    i, last = 0, None
+    while i < len(ops) or pending:
+        r = next((r for r in pending
+                  if last is None or last not in row_steps[r][0]), None)
+        if r is not None:
+            pending.remove(r)
+            n = len(row_steps[r])
+            steps += [("o", r, a, b, j == 0, j == n - 1)
+                      for j, (a, b) in enumerate(row_steps[r])]
+            last = None
+        elif i < len(ops) and (last is None or last not in ops[i]):
+            steps.append(("t", i) + tuple(ops[i]))
+            pending += ready[i + 1]
+            last, i = C + i, i + 1
+        else:
+            steps.append(("nop",))
+            last = None
+    return steps
+
+
+def encode_program(ops: Sequence[Tuple[int, int]], outs: Sequence[List[int]],
+                   C: int) -> Tuple[np.ndarray, int]:
+    """(ops, outs) of xor_schedule_program over C inputs -> (int16 [n, 4]
+    steps (a, b, d, flags | row << 2), number of temp slots).
+
+    Each step stores value[a] ^ value[b] into value[d], and also XORs it into
+    the accumulator (FIRST: starts it) and stores that as output row `row`
+    (LAST).  Value index v < C is input row v, C + s is temp slot s, then
+    come ZERO (always zero) and DUMMY (written, never read): an output step
+    writes DUMMY, an odd term or an empty row reads ZERO.  Steps come in
+    schedule_steps' order; a temp's slot is freed after its last read
+    (before that step's own result is allocated, which may reuse it) and
+    the lowest free slot is taken first."""
+    steps = schedule_steps(ops, outs, C)
     last: Dict[int, int] = {}
-    for pos, (kind, x) in enumerate(seq):
-        for t in (ops[x] if kind == "t" else outs[x]):
-            if t >= C:
+    for pos, step in enumerate(steps):
+        for t in (step[2:4] if step[0] != "nop" else ()):
+            if t is not None and t >= C:
                 last[t] = pos
     free: List[int] = []
     slot: Dict[int, int] = {}
     n_slots = 0
-    code: List[Tuple[int, int, int, int]] = []
-
-    def value(t: int) -> int:
-        return t if t < C else C + slot[t]
-
-    def release(terms, pos: int) -> None:
-        for t in set(terms):
-            if t >= C and last[t] == pos:
-                heapq.heappush(free, slot[t])
-
-    for pos, (kind, x) in enumerate(seq):
-        if kind == "t":
-            a, b = ops[x]
-            va, vb = value(a), value(b)
-            release((a, b), pos)
-            if free:
-                s = heapq.heappop(free)
-            else:
-                s, n_slots = n_slots, n_slots + 1
-            slot[C + x] = s
-            code.append((OP_TEMP, C + s, va, vb))
-            if C + x not in last:  # never read: free at once
-                heapq.heappush(free, s)
+    coded = []
+    for pos, step in enumerate(steps):
+        if step[0] == "nop":
+            coded.append((None, None, "dummy", 0))
             continue
-        terms = outs[x]
-        if not terms:
-            code.append((OP_OUT | FIRST | LAST | ZERO, x, 0, 0))
-        for j, t in enumerate(terms):
-            flags = OP_OUT | (FIRST if j == 0 else 0)
-            flags |= LAST if j == len(terms) - 1 else 0
-            code.append((flags, x, value(t), 0))
-        release(terms, pos)
-    if C + n_slots > MAX_INDEX or len(outs) > MAX_INDEX:
+        reads = [t if t is None or t < C else ("slot", slot[t])
+                 for t in step[2:4]]
+        for t in set(step[2:4]):
+            if t is not None and t >= C and last[t] == pos:
+                heapq.heappush(free, slot[t])
+        if step[0] == "o":
+            _, row, _, _, first, is_last = step
+            coded.append((*reads, "dummy",
+                          (FIRST if first else 0) | (LAST if is_last else 0)
+                          | row << 2))
+            continue
+        s = heapq.heappop(free) if free else n_slots
+        n_slots = max(n_slots, s + 1)
+        slot[C + step[1]] = s
+        coded.append((*reads, ("slot", s), 0))
+        if C + step[1] not in last:  # never read: free at once
+            heapq.heappush(free, s)
+    zero, dummy = C + n_slots, C + n_slots + 1
+    if dummy > MAX_INDEX or len(outs) > MAX_ROWS:
         raise ValueError(f"program of {C} inputs, {n_slots} slots and "
-                         f"{len(outs)} outputs exceeds the int16 index "
-                         f"limit {MAX_INDEX}")
+                         f"{len(outs)} outputs exceeds the limits of its "
+                         f"encoding ({MAX_INDEX} values, {MAX_ROWS} rows)")
+
+    def index(v) -> int:
+        if v is None:
+            return zero
+        if v == "dummy":
+            return dummy
+        return C + v[1] if isinstance(v, tuple) else v
+
+    code = [(index(a), index(b), index(d), meta) for a, b, d, meta in coded]
     return np.asarray(code, dtype=np.int16).reshape(-1, 4), n_slots
 
 
@@ -133,7 +175,7 @@ class Program:
         self.outs = [list(o) for o in outs]
         self.C, self.R = C, len(outs)
         self.code, self.n_slots = encode_program(self.ops, self.outs, C)
-        self.n_vals = C + self.n_slots
+        self.n_vals = C + self.n_slots + 2  # and ZERO, DUMMY
         self._on: Dict[torch.device, torch.Tensor] = {}
         self._lock = threading.Lock()
 

@@ -400,27 +400,49 @@ def test_k4_transposes_model_against_plain(B):
 
 
 def run_encoded(prog: kern.Program, rows: np.ndarray) -> np.ndarray:
-    """csrc/packedbit.cu run_program over every column at once: values 0..C-1
-    are the inputs, C+s temp slot s; each output row is stored on LAST."""
+    """csrc/packedbit.cu run_program over every column at once, in its order:
+    step p+1's operands are loaded before step p stores its result."""
+    zero, dummy = prog.n_vals - 2, prog.n_vals - 1
     vals = np.zeros((prog.n_vals, rows.shape[1]), dtype=rows.dtype)
     vals[:prog.C] = rows[:prog.C]
     out = np.full((prog.R, rows.shape[1]), 0xA5, dtype=rows.dtype)
     stored = np.zeros(prog.R, dtype=int)
-    acc = None
-    for op, dst, a, b in prog.code.tolist():
-        if op == kern.OP_TEMP:
-            assert prog.C <= dst < prog.n_vals
-            assert a < prog.n_vals and b < prog.n_vals
-            vals[dst] = vals[a] ^ vals[b]
-            continue
-        assert op & kern.OP_OUT and 0 <= dst < prog.R and 0 <= a < prog.n_vals
-        x = np.zeros_like(vals[0]) if op & kern.ZERO else vals[a]
-        acc = x.copy() if op & kern.FIRST else acc ^ x
-        if op & kern.LAST:
-            out[dst] = acc
-            stored[dst] += 1
-    assert (stored == 1).all()
+    code = prog.code.tolist()
+    xa, xb = vals[code[0][0]].copy(), vals[code[0][1]].copy()
+    acc = np.zeros_like(vals[0])  # temp steps fold into it too, unread
+    for p, (a, b, d, meta) in enumerate(code):
+        assert 0 <= a < dummy and 0 <= b < dummy
+        assert d == dummy or prog.C <= d < zero
+        na, nb = code[min(p + 1, len(code) - 1)][:2]
+        ya, yb = vals[na].copy(), vals[nb].copy()
+        x = xa ^ xb
+        vals[d] = x
+        acc = x if meta & kern.FIRST else acc ^ x
+        if meta & kern.LAST:
+            out[meta >> 2] = acc
+            stored[meta >> 2] += 1
+        xa, xb = ya, yb
+    assert (stored == 1).all() and not vals[zero].any()
     return out
+
+
+def test_schedule_keeps_a_temp_and_its_reader_apart():
+    """A step never reads the temp the step before it wrote (the kernel has
+    loaded its operands by then): here a step that does nothing goes
+    between, and the model of the kernel's order gives the plain answer,
+    which it does not without that step."""
+    ops, outs = [(0, 1), (2, 4)], [[5], [3, 5], []]
+    steps = kern.schedule_steps(ops, outs, 4)
+    assert ("nop",) in steps
+    for prev, step in zip(steps, steps[1:]):
+        if prev[0] == "t" and step[0] != "nop":
+            assert 4 + prev[1] not in step[2:4]
+    prog = kern.Program(ops, outs, 4)
+    rows = np.random.default_rng(6).integers(0, 256, (4, 16), dtype=np.uint8)
+    want = kern.xor_schedule_plain(prog, torch.from_numpy(rows)).numpy()
+    assert np.array_equal(run_encoded(prog, rows), want)
+    prog.code = prog.code[[i for i, s in enumerate(steps) if s != ("nop",)]]
+    assert not np.array_equal(run_encoded(prog, rows), want)
 
 
 @pytest.mark.parametrize("name,cse", [("rs_encode", True), ("rs_decode3", True),
