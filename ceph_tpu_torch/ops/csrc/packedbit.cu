@@ -18,7 +18,12 @@
 //   there is no divergence.
 //   Bound: bytes, C rows read once and R rows written once ((64 + 24) *
 //   64 KiB at the cauchy_good k=8 m=3 main shape: 1.7 us at 3.35 TB/s).  The
-//   XORs are a few hundred shared-memory operations per element.
+//   XORs are a few hundred shared-memory operations per element.  What
+//   bounds K3 and K4 on an H100 80GB HBM3 at 700 W is the program walk: at
+//   4 MiB an SM holds about one warp a scheduler, so a step's latency is the
+//   time (about 18 and 16.5 us at the main shapes against copy floors of
+//   7.7 us, PERF.md).  Every step therefore takes one path, and a step's
+//   operands are loaded before the step before it stores (run_program).
 // * apply_packedbit (K4) <- gf2_apply_packedbit and, with `planes`,
 //   gf2_encode_packedbit_resident: the one-shot lane in one launch.  A block
 //   takes 32 * threads columns of the k chunks: it copies them into shared
@@ -33,7 +38,7 @@
 //   bytes is one plane word): about one warp instruction a byte, against
 //   about one per 10 bytes here, and at the main shape each SM runs about
 //   one warp a scheduler, so instruction count per warp is the time
-//   (PERF.md, PR 5).
+//   (PERF.md has both versions' times on an H100).
 // * to_packedbit (K5) / from_packedbit (K6): the two transposes alone, one
 //   word column a thread, from K4's device functions.  Bound: bytes, each
 //   byte read once and written once in the other layout (2 * 4 MiB at the
