@@ -16,7 +16,7 @@ the raw packet bytes per packet-row call (kernels in ops/csrc/packedbit.cu).
 Otherwise, and for w=16 and w=4, the int8-plane lane runs (ops/csrc/gf2.cu).
 Bit-matrices are cached per codec, keyed by matrix: on the host for the
 schedule lane (whose programs the gf2 schedule LRU keeps), on the device
-for the int8-plane lane.
+for the int8-plane lane, in one dict.
 
 The device is the plugin's: ``CudaPlugin(device=None)`` builds codecs on the
 current CUDA device, ``CudaPlugin(device="cpu")`` on the CPU, where the same
@@ -81,23 +81,20 @@ class _CudaDispatch:
     plugin_name = "cuda"
     device: torch.device  # set by CudaPlugin.factory before init()
 
-    def _device_bitmatrix(self, matrix: np.ndarray,
-                          build: Callable[[], np.ndarray]) -> torch.Tensor:
-        cache: Dict[Tuple, torch.Tensor] = self.__dict__.setdefault(
+    def _bitmatrix(self, matrix: np.ndarray, on_device: bool,
+                   expand: bool = True):
+        """`matrix` as a GF(2) bit-matrix, expanded from GF(2^w) when
+        `expand`: a host array for the schedule lane, or a tensor on the
+        codec's device for the int8-plane lane.  Cached per codec."""
+        cache: Dict[Tuple, object] = self.__dict__.setdefault(
             "_bitmatrix_cache", {})
-        key = (matrix.shape, matrix.dtype.str, matrix.tobytes())
+        key = (on_device, matrix.shape, matrix.dtype.str, matrix.tobytes())
         bm = cache.get(key)
         if bm is None:
-            bm = cache[key] = bitmatrix_to_tensor(build(), self.device)
-        return bm
-
-    def _host_bitmatrix(self, matrix: np.ndarray) -> np.ndarray:
-        cache: Dict[Tuple, np.ndarray] = self.__dict__.setdefault(
-            "_host_bitmatrix_cache", {})
-        key = (matrix.shape, matrix.dtype.str, matrix.tobytes())
-        bm = cache.get(key)
-        if bm is None:
-            bm = cache[key] = matrix_to_bitmatrix(matrix, self.w)
+            bm = matrix_to_bitmatrix(matrix, self.w) if expand else matrix
+            if on_device:
+                bm = bitmatrix_to_tensor(bm, self.device)
+            cache[key] = bm
         return bm
 
     def _dispatch(self, seam: str, run: Callable[[], np.ndarray]) -> np.ndarray:
@@ -125,11 +122,10 @@ class _CudaDispatch:
         def run() -> np.ndarray:
             data = self._to_device(regions)
             if packedbit_enabled() and self.w == 8:
-                out = gf2_apply_packedbit(self._host_bitmatrix(matrix), data)
+                out = gf2_apply_packedbit(self._bitmatrix(matrix, False), data)
             else:
-                bm = self._device_bitmatrix(
-                    matrix, lambda: matrix_to_bitmatrix(matrix, self.w))
-                out = gf2_apply_bytes(bm, data, self.w, matrix.shape[0])
+                out = gf2_apply_bytes(self._bitmatrix(matrix, True), data,
+                                      self.w, matrix.shape[0])
             return out.cpu().numpy()
 
         return self._dispatch("apply", run)
@@ -146,7 +142,7 @@ class _CudaDispatch:
                 out = gf2_xor_packed(np.asarray(bm, dtype=np.uint8), flat)
                 return out.cpu().numpy().reshape(bm.shape[0], nb, p)
             n, out_n = R // w, bm.shape[0] // w
-            mbits = self._device_bitmatrix(bm, lambda: bm)
+            mbits = self._bitmatrix(bm, True, expand=False)
             chunks = (self._to_device(rows).reshape(n, w, nb, p)
                       .permute(0, 2, 1, 3).reshape(n, nb * w * p))
             out = gf2_apply_packets(mbits, chunks, w, p, out_n)

@@ -44,7 +44,6 @@ reference's):
 
 from __future__ import annotations
 
-import heapq
 import os
 import threading
 from collections import OrderedDict
@@ -228,59 +227,62 @@ def xor_schedule_program(bitmatrix: np.ndarray, cse: "bool | None" = None):
         cse = xor_cse_enabled()
     bm = np.asarray(bitmatrix, dtype=np.uint8)
     R, C = bm.shape
-    sets = [set(np.nonzero(bm[r])[0].tolist()) for r in range(R)]
-    naive = sum(max(0, len(s) - 1) for s in sets)
+    member = bm != 0
+    naive = int(np.maximum(member.sum(axis=1) - 1, 0).sum())
     ops: list = []
     if cse and naive <= 4096:  # pathological profiles skip the greedy pass
-        # The pair histogram is built once and updated only for the rows each
-        # factoring touches; a lazy-deletion heap orders candidates by
-        # (count desc, a asc, b asc).
-        counts: dict = {}
-        occ: dict = {}  # term -> set of row indices containing it
-        for r, s in enumerate(sets):
-            elems = sorted(s)
-            for x in elems:
-                occ.setdefault(x, set()).add(r)
-            for i in range(len(elems)):
-                for j in range(i + 1, len(elems)):
-                    p = (elems[i], elems[j])
-                    counts[p] = counts.get(p, 0) + 1
-        heap = [(-c, a, b) for (a, b), c in counts.items() if c >= 2]
-        heapq.heapify(heap)
-
-        def bump(p, d):
-            c = counts.get(p, 0) + d
-            if c > 0:
-                counts[p] = c
-                if c >= 2:
-                    heapq.heappush(heap, (-c, p[0], p[1]))
-            else:
-                counts.pop(p, None)
-
-        while heap:
-            negc, a, b = heapq.heappop(heap)
-            if counts.get((a, b), 0) != -negc:
-                continue  # stale entry: the pair's count has changed
-            t = C + len(ops)
-            ops.append((a, b))
-            for r in sorted(occ[a] & occ[b]):
-                s = sets[r]
-                for x in s:
-                    if x != a and x != b:
-                        bump((min(a, x), max(a, x)), -1)
-                        bump((min(b, x), max(b, x)), -1)
-                bump((a, b), -1)
-                s.discard(a)
-                s.discard(b)
-                occ[a].discard(r)
-                occ[b].discard(r)
-                for x in s:  # t > every existing term
-                    bump((x, t), +1)
-                s.add(t)
-                occ.setdefault(t, set()).add(r)
-    outs = [sorted(s) for s in sets]
+        ops, member = _greedy_pairs(member)
+    outs = [np.flatnonzero(member[r]).tolist() for r in range(R)]
     n_xors = len(ops) + sum(max(0, len(o) - 1) for o in outs)
     return ops, outs, n_xors
+
+
+def _greedy_pairs(member: np.ndarray):
+    """The greedy pass over [R, C] bool term membership: returns (ops,
+    membership over the C inputs and len(ops) temps).  The pair histogram
+    lives in a matrix, upper[i, j] for i < j, built once and updated by a
+    few vector operations per factoring, with each row's maximum kept so
+    that the next pair is found without a scan of every pair: the top
+    count, then the smallest a, then the smallest b, as the reference's
+    heap orders (count desc, a asc, b asc)."""
+    R, C = member.shape
+    cap = max(2 * C, 64)
+    member = np.pad(member, ((0, 0), (0, cap - C)))
+    m32 = member[:, :C].astype(np.int32)
+    upper = np.zeros((cap, cap), dtype=np.int32)
+    upper[:C, :C] = np.triu(m32.T @ m32, 1)
+    rowmax = upper.max(axis=1)
+    ops: list = []
+    T = C  # terms so far: inputs, then temps
+    while True:
+        a = int(np.argmax(rowmax[:T]))  # the first of the top count
+        if rowmax[a] < 2:
+            return ops, member[:, :T]
+        b = int(np.argmax(upper[a, :T]))
+        if T == cap:  # room for the new temp
+            cap *= 2
+            grown = np.zeros((cap, cap), dtype=np.int32)
+            grown[:T, :T] = upper
+            upper = grown
+            member = np.pad(member, ((0, 0), (0, cap - T)))
+            rowmax = np.pad(rowmax, (0, cap - T))
+        t = T
+        ops.append((a, b))
+        rows = np.flatnonzero(member[:, a] & member[:, b])
+        # v[x]: the factored rows that also hold x; pairs (a, x) and (b, x)
+        # lose them, and (x, t) gains them
+        v = member[rows, :T].sum(axis=0, dtype=np.int32)
+        v[a] = v[b] = 0
+        for y in (a, b):
+            upper[:y, y] -= v[:y]
+            upper[y, y + 1:T] -= v[y + 1:T]
+        upper[a, b] = 0
+        upper[:T, t] += v
+        member[rows, a] = member[rows, b] = False
+        member[rows, t] = True
+        T += 1
+        touched = np.concatenate([np.flatnonzero(v), [a, b]])
+        rowmax[touched] = upper[touched, :T].max(axis=1)
 
 
 def _sched_cache_get(key):

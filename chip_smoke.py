@@ -29,8 +29,10 @@ Phases; any failure exits nonzero before the result line is printed:
             count set to 0 just before it and read just after:
             a. the packed-bit lane on (the default): the benchmark CLI
                (plugin=cuda reed_sol_van k=8 m=3, 4 MiB objects, encode, then
-               decode with 3 random erasures; the CLI verifies recovered
-               content), 4 MiB objects under plugin=cuda against the port's
+               decode with 3 random erasures and with chunks 1, 5, 9 erased;
+               the CLI verifies recovered content; a "sched" line after each
+               gives the schedule LRU's hits, misses and compile seconds in
+               it), 4 MiB objects under plugin=cuda against the port's
                CPU plugin=jerasure (reed_sol_van and cauchy_good k=8 m=3),
                and the archived plugin=tpu corpus replayed under
                plugin=cuda.  xor_schedule and apply_packedbit must launch,
@@ -48,7 +50,9 @@ Phases; any failure exits nonzero before the result line is printed:
             the lane's one launch) / device->host of one 4 MiB encode (the
             codec API takes host bytes), and the device's busy share over
             back-to-back encodes from torch.profiler.
-5. report   the card, one {"kernels": [...]} line, and the result line.
+5. report   the card, one {"kernels": [...]} line (each row's "launches" is
+            the sum of its phase 3 counts, "launches_by_run" the three), and
+            the result line.
 """
 
 from __future__ import annotations
@@ -407,7 +411,8 @@ def phase_packedbit(device, bms, rng, rows) -> None:
         return line
 
     progs = {name: program(bms[name]) for name in
-             ("rs_encode", "rs_decode3", "rs_decode3_resident", "cauchy_good")}
+             ("rs_encode", "rs_decode3", "rs_decode3_resident", "cauchy_good",
+              "cauchy_decode3")}
     zero_row = bms["rs_encode"].copy()
     zero_row[5] = 0
     progs["zero_row"] = program(zero_row)
@@ -424,9 +429,9 @@ def phase_packedbit(device, bms, rng, rows) -> None:
                                     dtype=dtype), device)
         return flat[offset:].view(*shape)
 
-    # K3: packet rows of the cauchy_good encode and the resident decode's
-    # plane words (main path), 2 MiB of columns as plane words, then ragged,
-    # misaligned, zero-row, no-CSE and k=20 m=6 programs
+    # K3: packet rows of the cauchy_good encode and 3-erasure decode and the
+    # resident decode's plane words (main path), 2 MiB of columns as plane
+    # words, then ragged, misaligned, zero-row, no-CSE and k=20 m=6 programs
     def k3(pname, rows_in, label, **kw):
         prog, n_xors = progs[pname]
         rb = rows_in.shape[1] * rows_in.element_size()
@@ -439,6 +444,8 @@ def phase_packedbit(device, bms, rng, rows) -> None:
     # a 4 MiB cauchy_good k=8 m=3 object: 64 packet rows of 64 KiB
     k3("cauchy_good", rand(np.uint8, (64, main_cols // 8)), "", timed=True,
        report=True, floor=True)
+    k3("cauchy_decode3", rand(np.uint8, (64, main_cols // 8)), "", timed=True,
+       floor=True)
     k3("rs_decode3_resident", rand(np.int32, (88, main_cols // 32)), "",
        timed=True, floor=True)
     k3("rs_encode", rand(np.int32, (64, BATCH_COLS // 32)), "", timed=True)
@@ -519,18 +526,27 @@ def phase_packedbit(device, bms, rng, rows) -> None:
 
 # ---------------------------------------------------------------- phase 3 --
 
-def _run_cli(argv):
+def _run_cli(argv, label):
+    """One benchmark CLI run; prints its rate and what the schedule LRU did
+    in it (gf2_sched deltas: hits, misses, seconds spent compiling)."""
+    from ceph_tpu_torch.ops.gf2 import SCHED_PERF
     from ceph_tpu_torch.tools import benchmark
 
+    before = SCHED_PERF.dump()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = benchmark.main(argv)
+    after = SCHED_PERF.dump()
     text = out.getvalue().strip()
     check(rc == 0, f"benchmark {' '.join(argv)} exited {rc}")
     seconds, kb = text.split("\t")
     gbps = int(kb) * 1024 / float(seconds) / 1e9
-    print(f"cli {argv[argv.index('--workload') + 1]}: {text!r} "
-          f"-> {gbps:.3f} GB/s of object data")
+    print(f"cli {label}: {text!r} -> {gbps:.3f} GB/s of object data")
+    compile_s = after["compile_s"]["sum"] - before["compile_s"]["sum"]
+    print("sched " + json.dumps({
+        "cli": label, "seconds": float(seconds),
+        **{k: after[k] - before[k] for k in ("hit", "miss", "compile")},
+        "compile_s": compile_s, "compile_share": compile_s / float(seconds)}))
 
 
 def _codec(plugin: str, device, **profile):
@@ -602,8 +618,12 @@ def _codec_path(device) -> None:
     base = ["--plugin", "cuda", "--device", str(device), "-P",
             "technique=reed_sol_van", "-P", "k=8", "-P", "m=3",
             "--size", str(OBJECT_SIZE), "--iterations", str(CLI_ITERATIONS)]
-    _run_cli(base + ["--workload", "encode"])
-    _run_cli(base + ["--workload", "decode", "--erasures", "3"])
+    _run_cli(base + ["--workload", "encode"], "encode")
+    _run_cli(base + ["--workload", "decode", "--erasures", "3"],
+             "decode, 3 random erasures")
+    _run_cli(base + ["--workload", "decode"]
+             + [arg for c in LOST for arg in ("--erased", str(c))],
+             f"decode, erased {list(LOST)}")
 
     obj = np.random.default_rng(SEED).integers(
         0, 256, OBJECT_SIZE, dtype=np.uint8).tobytes()
@@ -671,8 +691,8 @@ def _resident_round_trip(device) -> None:
 
 
 def phase_main(device):
-    """The port's main path, three runs; returns the kernels' launch counts
-    summed over them and the K1/K2 routes of the run with the lane off."""
+    """The port's main path, three runs; returns each kernel's launch counts
+    by run and the K1/K2 routes of the run with the lane off."""
     _zero_counts()
     _codec_path(device)
     on, _ = _read_counts(device, "(packed-bit lane on)")
@@ -705,7 +725,8 @@ def phase_main(device):
     for name in ("xor_schedule", "apply_packedbit", "to_packedbit",
                  "from_packedbit"):
         check(res[name] > 0, f"{name} never launched in the resident round trip")
-    counts = {name: on[name] + off[name] + res[name] for name in on}
+    counts = {name: {"lane_on": on[name], "lane_off": off[name],
+                     "resident": res[name]} for name in on}
     return counts, routes
 
 
@@ -798,7 +819,9 @@ def main() -> int:
             row = rows[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces,
+                "launches": sum(counts[name].values()),
+                "launches_by_run": counts[name],
                 "max_abs_err": row["max_abs_err"], "match": True,
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

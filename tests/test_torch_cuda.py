@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from ceph_tpu_torch.ec.matrices import (cauchy_good_matrix, matrix_to_bitmatrix,
+from ceph_tpu_torch.ec.matrices import (cauchy_good_matrix, invert_bitmatrix,
+                                        matrix_to_bitmatrix,
                                         vandermonde_coding_matrix)
 from ceph_tpu_torch.ec.plugins.cuda import CudaPlugin
 from ceph_tpu_torch.ec.plugins.jerasure import JerasurePlugin
@@ -167,16 +168,29 @@ def _rs_bitmatrix(k: int, m: int) -> np.ndarray:
     return matrix_to_bitmatrix(vandermonde_coding_matrix(k, m, 8), 8)
 
 
+def _cauchy_good_decode3() -> np.ndarray:
+    """The [64, 64] cauchy_good k=8 m=3 decode when chunks 1, 5 and 9 are
+    lost: the inverse of the chosen chunks' rows of data ‖ coding."""
+    full = np.vstack([np.eye(64, dtype=np.uint8),
+                      matrix_to_bitmatrix(cauchy_good_matrix(8, 3, 8), 8)])
+    chosen = [c for c in range(11) if c not in (1, 5, 9)][:8]
+    return invert_bitmatrix(np.vstack([full[c * 8:(c + 1) * 8] for c in chosen]))
+
+
 def test_xor_schedule_matches_plain(card):
     """K3 on int32 plane words and uint8 packet rows, on every element
     width: aligned, ragged and misaligned rows, extra operand rows, an
-    all-zero output row, a program without CSE, and k=20 m=6."""
+    all-zero output row, a program without CSE, the cauchy_good encode and
+    3-erasure decode, and k=20 m=6."""
     rng = np.random.default_rng(11)
     bm = _rs_bitmatrix(8, 3)
     zero_row = bm.copy()
     zero_row[5] = 0
     cases = [(_program(bm), 64), (_program(bm, cse=False), 64),
-             (_program(zero_row), 64), (_program(_rs_bitmatrix(20, 6)), 160)]
+             (_program(zero_row), 64),
+             (_program(matrix_to_bitmatrix(cauchy_good_matrix(8, 3, 8), 8)), 64),
+             (_program(_cauchy_good_decode3()), 64),
+             (_program(_rs_bitmatrix(20, 6)), 160)]
     for prog, C in cases:
         for dtype, N, offset in ((np.int32, 4096, 0), (np.int32, 1001, 1),
                                  (np.uint8, 65536, 0), (np.uint8, 1000, 0),

@@ -39,7 +39,8 @@ def pinned_backend(monkeypatch):
 
 @functools.cache
 def matrices():
-    """The main path's bit-matrices, k=20 m=6, a random and an all-zero one."""
+    """The main path's bit-matrices, k=20 m=6, random ones (sparse and
+    dense), a single term and an all-zero one."""
     rs = JerasurePlugin().factory({"plugin": "jerasure", "k": "8", "m": "3",
                                    "technique": "reed_sol_van"})
     _, inv = rs.decode_selection({0, 4, 7}, set(range(11)) - {0, 4, 7})
@@ -55,6 +56,10 @@ def matrices():
             np.vstack([full[c * 8:(c + 1) * 8] for c in chosen])),
         "k20m6": M.matrix_to_bitmatrix(M.vandermonde_coding_matrix(20, 6, 8), 8),
         "random": rng.integers(0, 2, (16, 40), dtype=np.uint8),
+        # temps past the port's first term space (2 * C) in the CSE pass
+        "dense": (rng.random((48, 40)) < 0.9).astype(np.uint8),
+        "sparse": (rng.random((24, 100)) < 0.2).astype(np.uint8),
+        "single": np.ones((1, 1), dtype=np.uint8),
         "zero": np.zeros((8, 16), dtype=np.uint8),
     }
 
@@ -77,7 +82,8 @@ def program(name: str, cse: bool = True) -> kern.Program:
 
 @pytest.mark.parametrize("cse", [True, False])
 @pytest.mark.parametrize("name", ["rs_encode", "rs_decode3", "cauchy_good",
-                                  "cauchy_decode3", "k20m6", "random", "zero"])
+                                  "cauchy_decode3", "k20m6", "random", "dense",
+                                  "sparse", "single", "zero"])
 def test_xor_schedule_program_identical_to_reference(name, cse):
     bm = matrices()[name]
     assert port.xor_schedule_program(bm, cse=cse) == \
