@@ -10,35 +10,43 @@
 //
 // * xor_schedule (K3) <- gf2_xor_packed: an XOR program over C rows of any
 //   bytes (u32 plane words or uint8 packet rows; XOR is XOR) -> R rows.
-//   Each thread owns one element of every row, 16 bytes where the addresses
-//   and the row pitch allow it, else 4 or 1; threads past the row's end load
-//   zeros and store nothing.  The block stages its C input elements and its
-//   temps in shared memory as [value][thread], and every thread walks the
-//   same instruction list (staged in shared memory, read as a broadcast), so
-//   there is no divergence.
+//   A block takes 32 columns (elements of 16, 4 or 1 bytes, as the
+//   addresses and the row pitch allow) and one warp for each group of
+//   output rows: the host splits the rows into G groups, each with its own
+//   sub-program (the temps its rows need, then its rows) and its own temp
+//   slots.  The block stages its C input elements in shared memory as
+//   [value][column], the G warps share them, and each warp walks its own
+//   sub-program over them (staged in shared memory, read as a broadcast), so
+//   no warp diverges.  Lanes past the row's end load zeros and store nothing.
 //   Bound: bytes, C rows read once and R rows written once ((64 + 24) *
 //   64 KiB at the cauchy_good k=8 m=3 main shape: 1.7 us at 3.35 TB/s).  The
-//   XORs are a few hundred shared-memory operations per element.  What
-//   bounds K3 and K4 on an H100 80GB HBM3 at 700 W is the program walk: at
-//   4 MiB an SM holds about one warp a scheduler, so a step's latency is the
-//   time (about 18 and 16.5 us at the main shapes against copy floors of
-//   7.7 us, PERF.md).  Every step therefore takes one path, and a step's
-//   operands are loaded before the step before it stores (run_program).
+//   XORs are a few hundred shared-memory operations per element.  On an
+//   H100 80GB HBM3 at 700 W one warp walking a whole program at one warp a
+//   scheduler waited on each step's shared-memory loads (55 to 100 cycles
+//   a step, PERF.md); split over six warps, each warp's chain is about a
+//   third as long and the walk is held by shared-memory throughput instead,
+//   beside the loads' burst from device memory.  Every step takes one path,
+//   its operands are loaded a step ahead (run_program), the operands'
+//   addresses are byte offsets precomputed on the host, and an output step
+//   stores no temp.
 // * apply_packedbit (K4) <- gf2_apply_packedbit and, with `planes`,
 //   gf2_encode_packedbit_resident: the one-shot lane in one launch.  A block
-//   takes 32 * threads columns of the k chunks: it copies them into shared
-//   memory with 16-byte asynchronous copies (every row in flight at once);
-//   thread i then turns the 32 bytes of its own word column of each row into
-//   8 plane words in registers (four 8x8 bit transposes and byte
-//   permutes), runs the program on its words, and packs its output words
-//   back to bytes the same way.
+//   takes 32 or 64 word columns (1 or 2 KiB of each of the k chunks: a lane
+//   holds one or two word columns, so that a step moves two words for
+//   about the cost of one) and one warp a group.  The warps share the
+//   (row, KiB) items: each copies its items into shared memory with 16-byte
+//   asynchronous copies, then its part of the program, and as soon as its
+//   own items have landed it turns them into plane words (lane i turns the
+//   32 bytes of its word column into 8 plane words in registers: four 8x8
+//   bit transposes and byte permutes) while the other warps' loads are
+//   still arriving.  After a barrier each warp walks its group's
+//   sub-program over the shared words, and after another they share the
+//   output (chunk, word) items' packing back to bytes.
 //   Bound: bytes, k*B read and out*B written (4 MiB + 1.5 MiB at the main
 //   shape: 1.72 us), the same as apply_bytes_w8's.  A first version
 //   transposed with warp ballots (__ballot_sync over bit x of 32 lanes'
 //   bytes is one plane word): about one warp instruction a byte, against
-//   about one per 10 bytes here, and at the main shape each SM runs about
-//   one warp a scheduler, so instruction count per warp is the time
-//   (PERF.md has both versions' times on an H100).
+//   about one per 10 bytes here.  The walk is K3's.
 // * to_packedbit (K5) / from_packedbit (K6): the two transposes alone, one
 //   word column a thread, from K4's device functions.  Bound: bytes, each
 //   byte read once and written once in the other layout (2 * 4 MiB at the
@@ -53,11 +61,25 @@
 
 namespace {
 
-__host__ __device__ inline long long prog_bytes(int n_instr) {
-  return ((long long)n_instr * 8 + 15) / 16 * 16;
+// The program as the kernels stage it: a header of int4 rows holding the
+// groups' offsets (group g's steps are g's offset up to g + 1's, counted
+// from the first step), the steps, and the PREFETCH + 1 steps the walk
+// reads past its end.
+__host__ __device__ inline int header_rows(int n_groups) {
+  return (n_groups + 4) / 4;
+}
+__host__ __device__ inline int staged_rows(int n_instr, int n_groups) {
+  return header_rows(n_groups) + n_instr + CTT_PB_PREFETCH + 1;
+}
+__host__ __device__ inline long long prog_bytes(int n_instr, int n_groups) {
+  return 16LL * staged_rows(n_instr, n_groups);
 }
 
 __host__ inline long long max_ll(long long a, long long b) { return a > b ? a : b; }
+
+bool aligned(const void* p, unsigned n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
+}
 
 __device__ __forceinline__ uint4 vxor(uint4 a, uint4 b) {
   return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
@@ -71,6 +93,15 @@ template <typename V>
 __device__ __forceinline__ V vzero() { return V(0); }
 template <>
 __device__ __forceinline__ uint4 vzero<uint4>() { return make_uint4(0, 0, 0, 0); }
+template <>
+__device__ __forceinline__ uint2 vzero<uint2>() { return make_uint2(0, 0); }
+__device__ __forceinline__ uint2 vxor(uint2 a, uint2 b) {
+  return make_uint2(a.x ^ b.x, a.y ^ b.y);
+}
+
+// Word i of a value of one or two words.
+__device__ __forceinline__ uint32_t word(uint32_t v, int) { return v; }
+__device__ __forceinline__ uint32_t word(uint2 v, int i) { return i ? v.y : v.x; }
 
 // Asynchronous 16- and 4-byte copies from device to shared memory, so that
 // every row of a block's loads is in flight at once (cp.async.wait_all, then
@@ -86,39 +117,59 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
-
-// Copy the instruction list into shared memory (caller syncs).
-__device__ __forceinline__ void stage_program(const int2* __restrict__ prog,
-                                              int n_instr, int2* sprog) {
-  for (int i = threadIdx.x; i < n_instr; i += blockDim.x) sprog[i] = prog[i];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's most recent copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Walk the program over this thread's column of vals ([n_vals][T], column
-// tid), handing each finished output row to store(row, value).  Only the
-// thread's own column is touched, so no barrier is needed inside.  With at
-// most a warp a scheduler, the chain of shared-memory loads is the time, so
-// step p+1's operands are loaded before step p stores its result (the host's
-// schedule never lets a step read what the step before it wrote), and the
-// instruction after that is read meanwhile.  Every step takes the same path:
-// value[d] = value[a] ^ value[b], folded into the accumulator too.
+// Copy the program (header, steps and padding: `rows` int4) into shared
+// memory with 16-byte asynchronous copies (the caller waits for them and
+// syncs).
+__device__ __forceinline__ void stage_program(const int4* __restrict__ prog,
+                                              int rows, int4* sprog) {
+  for (int i = threadIdx.x; i < rows; i += blockDim.x)
+    cp_async16(sprog + i, prog + i);
+}
+
+template <typename V>
+__device__ __forceinline__ V& at(unsigned char* col, int offset) {
+  return *reinterpret_cast<V*>(col + offset);
+}
+
+// Walk one sub-program of n steps over this lane's column of values (`col`
+// points at the lane's element of value 0; an instruction's a, b and d are
+// byte offsets from it), handing each finished output row to
+// store(row, value).  Only the lane's own column is touched, and the
+// values other warps read (the inputs) are not written, so no barrier is
+// needed inside.  The operands of step p + PREFETCH are loaded before step
+// p stores its result (the host's schedule never lets a step read what the
+// PREFETCH steps before it write), so that a step's loads have PREFETCH
+// steps to land in, and the instruction after that is read meanwhile; the
+// list holds PREFETCH + 1 steps past every group's end for that.  Every
+// step takes the same path: value[d] = value[a] ^ value[b], folded into
+// the accumulator too; an output step's d is -1, and its store is skipped
+// (predicated, so the warp does not branch), which spares shared-memory
+// bandwidth.
 template <typename V, typename Store>
-__device__ __forceinline__ void run_program(const int2* sprog, int n_instr,
-                                            V* vals, int T, int tid,
-                                            Store store) {
-  int2 cur = sprog[0];
-  int2 nxt = sprog[n_instr > 1 ? 1 : 0];
-  V xa = vals[(cur.x & 0xffff) * T + tid];
-  V xb = vals[(cur.x >> 16) * T + tid];
+__device__ __forceinline__ void run_program(const int4* sprog, int n,
+                                            unsigned char* col, Store store) {
+  static_assert(CTT_PB_PREFETCH == 1, "the walk keeps one step in flight");
+  if (n <= 0) return;
+  int4 cur = sprog[0], nxt = sprog[1];
+  V xa = at<V>(col, cur.x), xb = at<V>(col, cur.y);
   V acc = vzero<V>();
-  for (int p = 0; p < n_instr; ++p) {
-    const int2 after = sprog[p + 2 < n_instr ? p + 2 : n_instr - 1];
-    const V ya = vals[(nxt.x & 0xffff) * T + tid];
-    const V yb = vals[(nxt.x >> 16) * T + tid];
+#pragma unroll 4
+  for (int p = 0; p < n; ++p) {
+    const int4 after = sprog[p + 2];
+    const V ya = at<V>(col, nxt.x), yb = at<V>(col, nxt.y);
     const V x = vxor(xa, xb);
-    vals[(cur.y & 0xffff) * T + tid] = x;
-    const int meta = cur.y >> 16;
-    acc = (meta & CTT_PB_FIRST) ? x : vxor(acc, x);
-    if (meta & CTT_PB_LAST) store(meta >> 2, acc);
+    if (cur.z >= 0) at<V>(col, cur.z) = x;  // output steps store no temp
+    acc = (cur.w & CTT_PB_FIRST) ? x : vxor(acc, x);
+    if (cur.w & CTT_PB_LAST) store(cur.w >> 2, acc);
     xa = ya;
     xb = yb;
     cur = nxt;
@@ -126,28 +177,39 @@ __device__ __forceinline__ void run_program(const int2* sprog, int n_instr,
   }
 }
 
-// Columns [c0, c0 + width) of one row of B bytes into shared memory, zeros
-// past B.  vec16: the row base and B are multiples of 16 (16-byte
-// asynchronous copies; the caller waits for them).
-__device__ __forceinline__ void load_tile_row(const uint8_t* __restrict__ row,
-                                              long long B, long long c0,
-                                              int width, uint8_t* dst,
-                                              bool vec16) {
+// After staging: run_program over this warp's group of the staged program.
+template <typename V, typename Store>
+__device__ __forceinline__ void run_group(const int4* sprog, int n_groups,
+                                          int group, unsigned char* col,
+                                          Store store) {
+  const int* off = reinterpret_cast<const int*>(sprog);
+  const int first = off[group];
+  run_program<V>(sprog + header_rows(n_groups) + first,
+                 off[group + 1] - first, col, store);
+}
+
+// Columns [c, c + 1024) of one row of B bytes into shared memory at dst,
+// zeros past B, by the 32 lanes of one warp.  vec16: the row and B are
+// multiples of 16 (16-byte asynchronous copies; the caller waits for them
+// and syncs the warp).
+__device__ __forceinline__ void load_item(const uint8_t* __restrict__ row,
+                                          long long B, long long c,
+                                          uint8_t* dst, int lane,
+                                          bool vec16) {
   if (vec16) {
-    uint4* d = reinterpret_cast<uint4*>(dst);
-#pragma unroll 2
-    for (int v = threadIdx.x; v < width / 16; v += blockDim.x) {
-      const long long c = c0 + 16LL * v;
-      if (c < B)
-        cp_async16(d + v, row + c);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int v = lane + 32 * q;
+      const long long g = c + 16LL * v;
+      uint4* d = reinterpret_cast<uint4*>(dst) + v;
+      if (g < B)
+        cp_async16(d, row + g);
       else
-        d[v] = make_uint4(0, 0, 0, 0);
+        *d = make_uint4(0, 0, 0, 0);
     }
   } else {
-    for (int c = threadIdx.x; c < width; c += blockDim.x) {
-      const long long g = c0 + c;
-      dst[c] = g < B ? __ldg(row + g) : uint8_t(0);
-    }
+    for (int q = lane; q < 1024; q += 32)
+      dst[q] = c + q < B ? __ldg(row + c + q) : uint8_t(0);
   }
 }
 
@@ -258,108 +320,163 @@ __device__ __forceinline__ void pack_store(const uint32_t wx[8], uint8_t* row,
 
 // ---------------------------------------------------------------- K3 --
 
+// One block: 32 columns, blockDim.x / 32 groups, warp g walking group g.
 template <typename V>
-__global__ void xor_schedule_kernel(const int2* __restrict__ prog, int n_instr,
-                                    int C, int n_vals,
-                                    const V* __restrict__ in,
-                                    V* __restrict__ out, long long E) {
+__global__ void __launch_bounds__(32 * CTT_PB_MAX_GROUPS)
+xor_schedule_kernel(const int4* __restrict__ prog, int n_instr, int C,
+                    int n_vals, const V* __restrict__ in, V* __restrict__ out,
+                    long long E) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int T = blockDim.x, tid = threadIdx.x;
-  int2* sprog = reinterpret_cast<int2*>(smem);
-  V* vals = reinterpret_cast<V*>(smem + prog_bytes(n_instr));
-  const long long e = (long long)blockIdx.x * T + tid;
+  const int lane = threadIdx.x & 31, group = threadIdx.x >> 5;
+  const int G = blockDim.x >> 5;
+  int4* sprog = reinterpret_cast<int4*>(smem);
+  V* vals = reinterpret_cast<V*>(smem + prog_bytes(n_instr, G));
+  const long long e = (long long)blockIdx.x * 32 + lane;
   const bool live = e < E;
-  stage_program(prog, n_instr, sprog);
-  if (!live) {
-    for (int r = 0; r < C; ++r) vals[r * T + tid] = vzero<V>();
-  } else if constexpr (sizeof(V) == 16) {
-    for (int r = 0; r < C; ++r) cp_async16(&vals[r * T + tid], &in[r * E + e]);
-  } else if constexpr (sizeof(V) == 4) {
-    for (int r = 0; r < C; ++r) cp_async4(&vals[r * T + tid], &in[r * E + e]);
-  } else {
-#pragma unroll 8
-    for (int r = 0; r < C; ++r) vals[r * T + tid] = in[r * E + e];
+  // the data rows first, so that they are in flight while the program is
+  // staged; each warp loads every G-th row
+#pragma unroll 4
+  for (int r = group; r < C; r += G) {
+    if (!live) {
+      vals[r * 32 + lane] = vzero<V>();
+    } else if constexpr (sizeof(V) == 16) {
+      cp_async16(&vals[r * 32 + lane], &in[r * E + e]);
+    } else if constexpr (sizeof(V) == 4) {
+      cp_async4(&vals[r * 32 + lane], &in[r * E + e]);
+    } else {
+      vals[r * 32 + lane] = in[r * E + e];
+    }
   }
-  vals[(n_vals - 2) * T + tid] = vzero<V>();  // ZERO
+  stage_program(prog, staged_rows(n_instr, G), sprog);
+  if (group == 0) vals[(n_vals - 2) * 32 + lane] = vzero<V>();  // ZERO
   cp_async_wait_all();
   __syncthreads();
-  run_program<V>(sprog, n_instr, vals, T, tid, [&](int row, V v) {
-    if (live) out[row * E + e] = v;
-  });
+  V* mine = out + e;
+  run_group<V>(sprog, G, group, reinterpret_cast<unsigned char*>(vals + lane),
+               [&](int row, V v) {
+                 if (live) mine[row * E] = v;
+               });
 }
 
 template <typename V>
-cudaError_t launch_xor_schedule(const int16_t* prog, int n_instr, int C,
-                                int n_vals, const void* in, void* out,
-                                long long E,
-                                int threads, size_t smem, cudaStream_t stream) {
+cudaError_t launch_xor_schedule(const int4* prog, int n_instr, int n_groups,
+                                int C, int n_vals, const void* in, void* out,
+                                long long E, size_t smem,
+                                cudaStream_t stream) {
   auto kernel = xor_schedule_kernel<V>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (E + threads - 1) / threads;
-  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
-      reinterpret_cast<const int2*>(prog), n_instr, C, n_vals,
-      static_cast<const V*>(in), static_cast<V*>(out), E);
+  const long long blocks = (E + 31) / 32;
+  kernel<<<(unsigned)blocks, 32 * n_groups, smem, stream>>>(
+      prog, n_instr, C, n_vals, static_cast<const V*>(in),
+      static_cast<V*>(out), E);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K4 --
 
-__global__ void apply_packedbit_kernel(const int2* __restrict__ prog,
-                                       int n_instr, int k, int out_rows,
-                                       int n_vals,
-                                       const uint8_t* __restrict__ data,
-                                       long long B, uint8_t* __restrict__ out,
-                                       uint32_t* __restrict__ planes,
-                                       bool vec16_in, bool vec16_out) {
+// One block: 32 * NW word columns (1024 * NW bytes of each chunk) and
+// blockDim.x / 32 groups, warp g walking group g.  Lane i holds word
+// columns i and, with NW = 2, i + 32 of the block in one V of NW words, so
+// that a step moves NW words for about the cost of one.
+template <typename V>
+__global__ void __launch_bounds__(32 * CTT_PB_MAX_GROUPS)
+apply_packedbit_kernel(const int4* __restrict__ prog, int n_instr, int k,
+                       int out_rows, int n_vals,
+                       const uint8_t* __restrict__ data, long long B,
+                       uint8_t* __restrict__ out,
+                       uint32_t* __restrict__ planes, bool vec16_in,
+                       bool vec16_out) {
+  constexpr int NW = sizeof(V) / 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int T = blockDim.x, tid = threadIdx.x;
+  const int lane = threadIdx.x & 31, group = threadIdx.x >> 5;
+  const int G = blockDim.x >> 5;
   const int C = k * 8;
-  const int width = 32 * T;
-  int2* sprog = reinterpret_cast<int2*>(smem);
-  uint32_t* vals = reinterpret_cast<uint32_t*>(smem + prog_bytes(n_instr));
+  const int width = 1024 * NW;
+  int4* sprog = reinterpret_cast<int4*>(smem);
+  V* vals = reinterpret_cast<V*>(smem + prog_bytes(n_instr, G));
   // the byte tile is dead once transposed; the output words reuse its room
-  uint8_t* tile = reinterpret_cast<uint8_t*>(vals + (long long)n_vals * T);
-  uint32_t* outw = reinterpret_cast<uint32_t*>(tile);
+  uint8_t* tile = reinterpret_cast<uint8_t*>(vals + (long long)n_vals * 32);
+  V* outw = reinterpret_cast<V*>(tile);
   const long long W = (B + 31) / 32;
   const long long c0 = (long long)blockIdx.x * width;
-  stage_program(prog, n_instr, sprog);
-  for (int j = 0; j < k; ++j)
-    load_tile_row(data + j * B, B, c0, width, tile + (long long)j * width,
-                  vec16_in);
-  cp_async_wait_all();
-  __syncthreads();
-  // each thread turns its own 32 columns of each row into plane words
-  for (int j = 0; j < k; ++j) {
+  const long long w0 = (long long)blockIdx.x * 32 * NW + lane;
+  // The warps share the (row, word) items: a warp loads each of its items
+  // (1024 bytes of one row), then the program, and waits for its own items
+  // only, so that its transposes overlap the other warps' loads; lane i
+  // turns its own 32 columns of an item into 8 plane words.
+  for (int t = group; t < k * NW; t += G) {
+    const int j = t / NW, i = t % NW;
+    load_item(data + j * B, B, c0 + 1024 * i,
+              tile + (long long)j * width + 1024 * i, lane, vec16_in);
+  }
+  cp_async_commit();
+  stage_program(prog, staged_rows(n_instr, G), sprog);
+  cp_async_commit();
+  cp_async_wait_group<1>();  // this thread's items, not the program
+  __syncwarp();
+  uint32_t* words = reinterpret_cast<uint32_t*>(vals + lane);
+  for (int t = group; t < k * NW; t += G) {
+    const int j = t / NW, i = t % NW;
     const uint4* src = reinterpret_cast<const uint4*>(
-        tile + (long long)j * width + 32 * tid);
+        tile + (long long)j * width + 1024 * i + 32 * lane);
     const uint4 a = src[0], b = src[1];
     const uint32_t v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
     uint32_t wx[8];
     bytes_to_words(v, wx);
 #pragma unroll
-    for (int x = 0; x < 8; ++x) vals[(j * 8 + x) * T + tid] = wx[x];
+    for (int x = 0; x < 8; ++x) {
+      words[(j * 8 + x) * 32 * NW + i] = wx[x];  // word i of value j*8+x
+      if (planes != nullptr && w0 + 32 * i < W)
+        planes[(j * 8 + x) * W + w0 + 32 * i] = wx[x];
+    }
   }
-  vals[(n_vals - 2) * T + tid] = 0;  // ZERO
-  __syncthreads();  // the output words reuse the tile's room
-  const long long w = (long long)blockIdx.x * T + tid;
-  const bool live = w < W;
-  if (planes != nullptr && live)
-    for (int r = 0; r < C; ++r) planes[r * W + w] = vals[r * T + tid];
-  run_program<uint32_t>(sprog, n_instr, vals, T, tid,
-                        [&](int row, uint32_t v) {
-                          outw[row * T + tid] = v;
-                          if (planes != nullptr && live)
-                            planes[(C + row) * W + w] = v;
-                        });
-  if (!live) return;
-  for (int o = 0; o < out_rows; ++o) {
+  cp_async_wait_all();
+  if (group == 0) vals[(n_vals - 2) * 32 + lane] = vzero<V>();  // ZERO
+  __syncthreads();  // every row transposed; the output words reuse the tile
+  V* mine = outw + lane;
+  uint32_t* resident = planes == nullptr ? nullptr : planes + C * W + w0;
+  run_group<V>(sprog, G, group, reinterpret_cast<unsigned char*>(vals + lane),
+               [&](int row, V v) {
+                 mine[row * 32] = v;
+                 if (resident != nullptr) {
+#pragma unroll
+                   for (int i = 0; i < NW; ++i)
+                     if (w0 + 32 * i < W) resident[row * W + 32 * i] = word(v, i);
+                 }
+               });
+  __syncthreads();  // a chunk's 8 rows may come from several groups
+  // the warps share the (chunk, word) pairs: lane i packs word column
+  // w0 + 32 * word of one output chunk back to its 32 bytes
+  const uint32_t* outs = reinterpret_cast<const uint32_t*>(outw);
+  for (int t = group; t < out_rows * NW; t += G) {
+    const int o = t / NW, i = t % NW;
+    if (w0 + 32 * i >= W) continue;
     uint32_t wx[8];
 #pragma unroll
-    for (int x = 0; x < 8; ++x) wx[x] = outw[(o * 8 + x) * T + tid];
-    pack_store(wx, out + o * B, 32 * w, B, vec16_out);
+    for (int x = 0; x < 8; ++x) wx[x] = outs[((o * 8 + x) * 32 + lane) * NW + i];
+    pack_store(wx, out + o * B, 32 * (w0 + 32 * i), B, vec16_out);
   }
+}
+
+template <typename V>
+cudaError_t launch_apply_packedbit(const int4* prog, int n_instr,
+                                   int n_groups, int k, int out_rows,
+                                   int n_vals, const uint8_t* data,
+                                   long long B, uint8_t* out,
+                                   uint32_t* planes, size_t smem,
+                                   cudaStream_t stream) {
+  auto kernel = apply_packedbit_kernel<V>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long W = (B + 31) / 32;
+  const long long cols = 32LL * (sizeof(V) / 4);
+  kernel<<<(unsigned)((W + cols - 1) / cols), 32 * n_groups, smem, stream>>>(
+      prog, n_instr, k, out_rows, n_vals, data, B, out, planes,
+      aligned(data, 16) && B % 16 == 0, aligned(out, 16) && B % 16 == 0);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K5 --
@@ -392,63 +509,61 @@ __global__ void from_packedbit_kernel(const uint32_t* __restrict__ planes,
   pack_store(wx, out + (long long)o * 32 * W, 32 * w, 32 * W, vec16);
 }
 
-bool aligned(const void* p, unsigned n) {
-  return reinterpret_cast<uintptr_t>(p) % n == 0;
-}
-
 bool valid_threads(int threads) {
   return threads >= 32 && threads <= 1024 && threads % 32 == 0;
 }
 
 }  // namespace
 
-extern "C" int ctt_xor_schedule(const int16_t* prog, int n_instr, int C,
-                                int n_vals, const void* in, void* out,
-                                long long row_bytes, int vec, int threads,
-                                void* stream) {
-  if (!valid_threads(threads) || n_instr < 1 || C < 1 || n_vals < C + 2 ||
-      (vec != 16 && vec != 4 && vec != 1) || row_bytes % vec != 0 ||
-      !aligned(in, vec) || !aligned(out, vec) || !aligned(prog, 8))
+extern "C" int ctt_xor_schedule(const int32_t* prog, int n_instr,
+                                int n_groups, int C, int n_vals,
+                                const void* in, void* out,
+                                long long row_bytes, int vec, void* stream) {
+  if (n_instr < 1 || n_groups < 1 || n_groups > CTT_PB_MAX_GROUPS || C < 1 ||
+      n_vals < C + 2 || (vec != 16 && vec != 4 && vec != 1) ||
+      row_bytes % vec != 0 || !aligned(in, vec) || !aligned(out, vec) ||
+      !aligned(prog, 16))
     return cudaErrorInvalidValue;
-  const long long smem = prog_bytes(n_instr) + (long long)n_vals * threads * vec;
+  const long long smem = prog_bytes(n_instr, n_groups) +
+                         (long long)n_vals * 32 * vec;
   if (smem > CTT_PB_MAX_SMEM) return cudaErrorInvalidValue;
   const long long E = row_bytes / vec;
   if (E == 0) return cudaSuccess;
+  const int4* p = reinterpret_cast<const int4*>(prog);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec == 16)
-    return launch_xor_schedule<uint4>(prog, n_instr, C, n_vals, in, out, E,
-                                   threads, smem, s);
+    return launch_xor_schedule<uint4>(p, n_instr, n_groups, C, n_vals, in,
+                                      out, E, smem, s);
   if (vec == 4)
-    return launch_xor_schedule<uint32_t>(prog, n_instr, C, n_vals, in, out, E,
-                                   threads, smem, s);
-  return launch_xor_schedule<uint8_t>(prog, n_instr, C, n_vals, in, out, E,
-                                   threads, smem, s);
+    return launch_xor_schedule<uint32_t>(p, n_instr, n_groups, C, n_vals, in,
+                                         out, E, smem, s);
+  return launch_xor_schedule<uint8_t>(p, n_instr, n_groups, C, n_vals, in,
+                                      out, E, smem, s);
 }
 
-extern "C" int ctt_apply_packedbit(const int16_t* prog, int n_instr, int k,
-                                   int out_rows, int n_vals,
-                                   const uint8_t* data, long long B,
-                                   uint8_t* out, uint32_t* planes, int threads,
+extern "C" int ctt_apply_packedbit(const int32_t* prog, int n_instr,
+                                   int n_groups, int k, int out_rows,
+                                   int n_vals, const uint8_t* data,
+                                   long long B, uint8_t* out,
+                                   uint32_t* planes, int words,
                                    void* stream) {
-  if (!valid_threads(threads) || n_instr < 1 || k < 1 || out_rows < 1 ||
-      n_vals < k * 8 + 2 || B < 1 || !aligned(prog, 8) ||
+  if (n_instr < 1 || n_groups < 1 || n_groups > CTT_PB_MAX_GROUPS || k < 1 ||
+      out_rows < 1 || n_vals < k * 8 + 2 || B < 1 ||
+      (words != 1 && words != 2) || !aligned(prog, 16) ||
       (planes != nullptr && !aligned(planes, 4)))
     return cudaErrorInvalidValue;
-  const long long smem = prog_bytes(n_instr) + (long long)n_vals * threads * 4 +
-                         max_ll(32LL * k, 32LL * out_rows) * threads;
+  const long long smem = prog_bytes(n_instr, n_groups) +
+                         (long long)n_vals * 32 * 4 * words +
+                         max_ll(k, out_rows) * 1024 * words;
   if (smem > CTT_PB_MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      apply_packedbit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long W = (B + 31) / 32;
-  const long long blocks = (W + threads - 1) / threads;
-  apply_packedbit_kernel<<<(unsigned)blocks, threads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const int2*>(prog), n_instr, k, out_rows, n_vals, data,
-      B, out, planes, aligned(data, 16) && B % 16 == 0,
-      aligned(out, 16) && B % 16 == 0);
-  return cudaGetLastError();
+  const int4* p = reinterpret_cast<const int4*>(prog);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (words == 2)
+    return launch_apply_packedbit<uint2>(p, n_instr, n_groups, k, out_rows,
+                                         n_vals, data, B, out, planes, smem, s);
+  return launch_apply_packedbit<uint32_t>(p, n_instr, n_groups, k, out_rows,
+                                          n_vals, data, B, out, planes, smem,
+                                          s);
 }
 
 extern "C" int ctt_to_packedbit(const uint8_t* data, int n, long long B,

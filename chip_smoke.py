@@ -379,6 +379,9 @@ def phase_packedbit(device, bms, rng, rows) -> None:
         got = fn()
         after = getattr(wrapper, "routes", {})
         path = next((r for r in after if after[r] != before[r]), "cuda")
+        # K3 and K4: the launch's groups, longest sub-program, warps an SM
+        block = dict(getattr(wrapper, "last", None) or {})
+        block.pop("route", None)
         want = plain()
         sync(device)
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
@@ -391,7 +394,7 @@ def phase_packedbit(device, bms, rng, rows) -> None:
                                .abs().max()))
         check(err == 0, f"{name} {label}: max_abs_err {err}")
         line = {"kernel": name, "path": path, "shape": label,
-                "max_abs_err": err}
+                "max_abs_err": err, **block}
         if timed:
             b_ms, b_by = xor_bound(n_bytes, word_ops)
             line.update(ms=time_ms(fn, TIMING_REPS),
@@ -832,6 +835,9 @@ def main() -> int:
             if name + ".popc" in rows:
                 row.update(paths=routes[name],
                            popc_ms=rows[name + ".popc"]["ms"])
+            row.update({key: rows[name][key] for key in
+                        ("groups", "steps", "warps_per_sm", "words")
+                        if key in rows[name]})
             if name == "apply_packedbit":
                 row.update(ms_turns=rows[name]["ms_turns"],
                            apply_bytes_w8_ms_turns=rows[name][

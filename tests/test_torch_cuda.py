@@ -226,6 +226,51 @@ def test_packedbit_transposes_and_apply_match_plain(card):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("groups", [1, 3, 8])
+def test_grouped_blocks_match_plain(card, groups):
+    """K3 on every element width and K4 with 1 and 2 plane words a lane,
+    for programs split into 1, 3 and 8 groups of output rows (blocks of
+    32 * groups threads): ragged, misaligned and main-path widths, a
+    zero output row, k=20 m=6 and the [64, 64] cauchy_good decode."""
+    rng = np.random.default_rng(14 + groups)
+    zero_row = _rs_bitmatrix(8, 3)
+    zero_row[5] = 0
+    for bm in (_rs_bitmatrix(8, 3), zero_row, _rs_bitmatrix(20, 6),
+               _cauchy_good_decode3()):  # wide lanes that do not fit are skipped
+        ops, outs, _ = port_gf2.xor_schedule_program(bm)
+        prog = cuda_packedbit.Program(ops, outs, bm.shape[1], groups=groups)
+        C = bm.shape[1]
+        for N, offset in ((65536, 0), (4096, 4), (1001, 1), (31, 0)):
+            flat = on(card, rng.integers(0, 256, C * N + offset, dtype=np.uint8))
+            rows = flat[offset:].view(C, N)
+            want = cuda_packedbit.xor_schedule_plain(prog, rows)
+            for route in ("v16", "v4", "b1"):
+                vec = {"v16": 16, "v4": 4, "b1": 1}[route]
+                if (N % vec == 0 and offset % vec == 0
+                        and cuda_packedbit.xor_schedule_smem(prog, 32, vec)
+                        <= cuda_packedbit.MAX_SMEM):
+                    got = cuda_packedbit.xor_schedule(prog, rows, route)
+                    assert torch.equal(got, want), (route, N, offset)
+        if C % 8 or prog.R % 8:
+            continue
+        k = C // 8
+        for B, offset in ((524288, 0), (32768 + 17, 0), (4096, 1), (1000, 0)):
+            flat = on(card, rng.integers(0, 256, k * B + offset, dtype=np.uint8))
+            data = flat[offset:].view(k, B)
+            want = cuda_packedbit.apply_packedbit_plain(prog, data, True)
+            for words in (1, 2):
+                if (cuda_packedbit.apply_packedbit_smem(prog, 32 * words)
+                        > cuda_packedbit.MAX_SMEM):
+                    continue
+                got = cuda_packedbit.apply_packedbit(prog, data, True, words)
+                assert torch.equal(got[0], want[0]) and torch.equal(
+                    got[1], want[1]), (words, B, offset)
+                assert torch.equal(
+                    cuda_packedbit.apply_packedbit(prog, data, words=words),
+                    want[0])
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("packedbit", ["1", "0"])
 @pytest.mark.parametrize("profile", [
     dict(technique="reed_sol_van", k="8", m="3"),

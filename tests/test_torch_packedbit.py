@@ -406,48 +406,76 @@ def test_k4_transposes_model_against_plain(B):
 
 
 def run_encoded(prog: kern.Program, rows: np.ndarray) -> np.ndarray:
-    """csrc/packedbit.cu run_program over every column at once, in its order:
-    step p+1's operands are loaded before step p stores its result."""
+    """csrc/packedbit.cu over every column at once: each group's warp walks
+    its own sub-program in run_program's order (the operands of step
+    p + PREFETCH are loaded before step p stores its result, reading ahead
+    past the group's end into the next group's steps and the padding
+    steps), over the shared inputs and its own temp slots.  The warps run
+    one step each in turn, as concurrent warps may, and no group may write
+    what another reads."""
     zero, dummy = prog.n_vals - 2, prog.n_vals - 1
+    ahead = kern.PREFETCH
     vals = np.zeros((prog.n_vals, rows.shape[1]), dtype=rows.dtype)
     vals[:prog.C] = rows[:prog.C]
     out = np.full((prog.R, rows.shape[1]), 0xA5, dtype=rows.dtype)
     stored = np.zeros(prog.R, dtype=int)
-    code = prog.code.tolist()
-    xa, xb = vals[code[0][0]].copy(), vals[code[0][1]].copy()
-    acc = np.zeros_like(vals[0])  # temp steps fold into it too, unread
-    for p, (a, b, d, meta) in enumerate(code):
-        assert 0 <= a < dummy and 0 <= b < dummy
-        assert d == dummy or prog.C <= d < zero
-        na, nb = code[min(p + 1, len(code) - 1)][:2]
-        ya, yb = vals[na].copy(), vals[nb].copy()
-        x = xa ^ xb
-        vals[d] = x
-        acc = x if meta & kern.FIRST else acc ^ x
-        if meta & kern.LAST:
-            out[meta >> 2] = acc
-            stored[meta >> 2] += 1
-        xa, xb = ya, yb
+    code = prog.code.tolist() + [[zero, zero, dummy, 0]] * (ahead + 1)
+    walks = []
+    for g in range(prog.groups):
+        first, end = int(prog.offsets[g]), int(prog.offsets[g + 1])
+        walks.append({"p": first, "end": end, "acc": np.zeros_like(vals[0]),
+                      "loaded": [(vals[code[q][0]].copy(),
+                                  vals[code[q][1]].copy())
+                                 for q in range(first, first + ahead)]})
+    while any(w["p"] < w["end"] for w in walks):
+        for w in walks:
+            p = w["p"]
+            if p >= w["end"]:
+                continue
+            a, b, d, meta = code[p]
+            assert 0 <= a < dummy and 0 <= b < dummy
+            assert d == dummy or prog.C <= d < zero
+            na, nb = code[p + ahead][:2]
+            w["loaded"].append((vals[na].copy(), vals[nb].copy()))
+            xa, xb = w["loaded"].pop(0)
+            x = xa ^ xb
+            if d != dummy:  # the device stores no output step's result
+                vals[d] = x
+            w["acc"] = x if meta & kern.FIRST else w["acc"] ^ x
+            if meta & kern.LAST:
+                out[meta >> 2] = w["acc"]
+                stored[meta >> 2] += 1
+            w["p"] = p + 1
     assert (stored == 1).all() and not vals[zero].any()
     return out
 
 
+def group_slots(prog: kern.Program):
+    """Each group's temp slots, as value indices: the ones its steps write."""
+    zero, dummy = prog.n_vals - 2, prog.n_vals - 1
+    return [{d for _, _, d, _ in prog.code[prog.offsets[g]:prog.offsets[g + 1]]
+             .tolist() if d != dummy}
+            for g in range(prog.groups)]
+
+
 def test_schedule_keeps_a_temp_and_its_reader_apart():
-    """A step never reads the temp the step before it wrote (the kernel has
-    loaded its operands by then): here a step that does nothing goes
-    between, and the model of the kernel's order gives the plain answer,
-    which it does not without that step."""
+    """A step never reads a temp that one of the PREFETCH steps before it
+    wrote (the kernel has loaded its operands by then): here steps that do
+    nothing go between, and the model of the kernel's order gives the plain
+    answer, which it does not without them."""
     ops, outs = [(0, 1), (2, 4)], [[5], [3, 5], []]
     steps = kern.schedule_steps(ops, outs, 4)
     assert ("nop",) in steps
-    for prev, step in zip(steps, steps[1:]):
-        if prev[0] == "t" and step[0] != "nop":
-            assert 4 + prev[1] not in step[2:4]
-    prog = kern.Program(ops, outs, 4)
+    for q, step in enumerate(steps):
+        for prev in steps[max(0, q - kern.PREFETCH):q]:
+            if prev[0] == "t" and step[0] != "nop":
+                assert 4 + prev[1] not in step[2:4]
+    prog = kern.Program(ops, outs, 4, groups=1)
     rows = np.random.default_rng(6).integers(0, 256, (4, 16), dtype=np.uint8)
     want = kern.xor_schedule_plain(prog, torch.from_numpy(rows)).numpy()
     assert np.array_equal(run_encoded(prog, rows), want)
     prog.code = prog.code[[i for i, s in enumerate(steps) if s != ("nop",)]]
+    prog.offsets = np.array([0, len(prog.code)], dtype=np.int32)
     assert not np.array_equal(run_encoded(prog, rows), want)
 
 
@@ -455,35 +483,152 @@ def test_schedule_keeps_a_temp_and_its_reader_apart():
                                       ("cauchy_decode3", True), ("k20m6", True),
                                       ("k20m6", False), ("zero", True)])
 def test_encoded_program_model_against_plain(name, cse):
-    """The instruction list with liveness-reused slots computes what the
-    plain replay of (ops, outs) does, and fits both kernels' shared memory
-    at 32 threads a block."""
+    """The instruction list with liveness-reused slots, split into groups,
+    computes what the plain replay of (ops, outs) does, and fits both
+    kernels' shared memory at a block of 32 columns."""
     prog = program(name, cse)
+    assert prog.groups == min(kern.GROUPS, prog.R)
     rows = np.random.default_rng(5).integers(0, 256, (prog.C + 3, 64),
                                              dtype=np.uint8)
     want = kern.xor_schedule_plain(prog, torch.from_numpy(rows)).numpy()
     assert np.array_equal(run_encoded(prog, rows), want)
-    assert prog.n_slots <= len(prog.ops)
+    need = kern.row_closures(prog.ops, prog.outs, prog.C)
+    temps = 0  # each group's temps; slots are reused within a group
+    for rows in prog.rows:
+        closure = 0
+        for r in rows:
+            closure |= need[r]
+        temps += closure.bit_count()
+    assert prog.n_slots <= temps
     assert kern.xor_schedule_smem(prog, 32, 4) <= kern.MAX_SMEM
     if prog.C % 8 == 0 and prog.R % 8 == 0:
         assert kern.apply_packedbit_smem(prog, 32) <= kern.MAX_SMEM
 
 
+GROUPED = ["rs_encode", "rs_decode3", "cauchy_good", "cauchy_decode3",
+           "k20m6", "zero"]
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3, 8])
+@pytest.mark.parametrize("cse", [True, False])
+@pytest.mark.parametrize("name", GROUPED)
+def test_grouped_program_model_against_plain(name, cse, groups):
+    """Every number of groups: the model of the grouped walk gives the plain
+    replay's rows, the partition covers every output row exactly once, and
+    each group writes only its own slots."""
+    bm = matrices()[name]
+    ops, outs, _ = port.xor_schedule_program(bm, cse=cse)
+    prog = kern.Program(ops, outs, bm.shape[1], groups=groups)
+    assert prog.groups == min(groups, prog.R)
+    assert sorted(r for rows in prog.rows for r in rows) == list(range(prog.R))
+    rows_of_steps = [{int(m) >> 2 for m in prog.code[prog.offsets[g]:
+                                                     prog.offsets[g + 1], 3]
+                      if m & kern.LAST} for g in range(prog.groups)]
+    assert rows_of_steps == [set(r) for r in prog.rows]
+    slots = group_slots(prog)
+    for g, mine in enumerate(slots):
+        assert all(mine.isdisjoint(other) for h, other in enumerate(slots)
+                   if h != g)
+    rows = np.random.default_rng(9).integers(0, 256, (prog.C, 48),
+                                             dtype=np.uint8)
+    want = kern.xor_schedule_plain(prog, torch.from_numpy(rows)).numpy()
+    assert np.array_equal(run_encoded(prog, rows), want)
+
+
+@pytest.mark.parametrize("name", GROUPED)
+def test_groups_read_only_their_own_temps(name):
+    """A group's steps compute exactly the temps of its rows' closure over
+    ops, and read no temp slot but the ones it writes itself."""
+    bm = matrices()[name]
+    ops, outs, _ = port.xor_schedule_program(bm, cse=True)
+    C = bm.shape[1]
+    prog = kern.Program(ops, outs, C)
+    need = kern.row_closures(ops, outs, C)
+    zero = prog.n_vals - 2
+    for g, rows in enumerate(prog.rows):
+        closure = 0
+        for r in rows:
+            closure |= need[r]
+        steps = prog.code[prog.offsets[g]:prog.offsets[g + 1]].tolist()
+        temp_steps = [s for s in steps if s[3] == 0 and s[2] != zero + 1]
+        assert len(temp_steps) == closure.bit_count()
+        mine = group_slots(prog)[g]
+        for a, b, _, _ in steps:
+            for v in (a, b):
+                assert v < C or v == zero or v in mine
+
+
+@pytest.mark.parametrize("name", GROUPED)
+def test_no_step_reads_the_temp_its_predecessor_wrote(name):
+    """Inside each group, the kernel's read-ahead rule holds: no step reads
+    a value that one of the PREFETCH steps before it in the same group
+    wrote."""
+    prog = program(name)
+    dummy = prog.n_vals - 1
+    for g in range(prog.groups):
+        steps = prog.code[prog.offsets[g]:prog.offsets[g + 1]].tolist()
+        for q, step in enumerate(steps):
+            for prev in steps[max(0, q - kern.PREFETCH):q]:
+                assert prev[2] == dummy or prev[2] not in step[:2]
+
+
+def test_partition_balances_by_cost_not_by_neighbours():
+    """The [64, 64] cauchy_good decode has 40 identity rows: cut into runs
+    of neighbouring rows its longest group is far longer than the balanced
+    partition's, which stays near an even share of the grouped steps."""
+    bm = matrices()["cauchy_decode3"]
+    ops, outs, _ = port.xor_schedule_program(bm, cse=True)
+    prog = kern.Program(ops, outs, 64, groups=4)
+    lengths = np.diff(prog.offsets)
+    need = kern.row_closures(ops, outs, 64)
+
+    def cost(rows):
+        closure = 0
+        for r in rows:
+            closure |= need[r]
+        return closure.bit_count() + sum(max(1, (len(outs[r]) + 1) // 2)
+                                         for r in rows)
+
+    runs = max(cost(range(q * 16, q * 16 + 16)) for q in range(4))
+    assert prog.steps == lengths.max() < 0.8 * runs
+    assert prog.steps <= 1.3 * lengths.sum() / 4
+    single = kern.Program(ops, outs, 64, groups=1)
+    assert prog.steps < 0.5 * single.steps
+
+
+def test_k20m6_blocks_fit_in_shared_memory():
+    """The widest profile the tests run, k=20 m=6, fits one K3 block of 4-byte
+    elements and one K4 block at the default number of groups."""
+    for cse in (True, False):
+        prog = program("k20m6", cse)
+        assert prog.groups == kern.GROUPS
+        assert kern.apply_packedbit_smem(prog, kern.COLS) <= kern.MAX_SMEM
+        assert kern.xor_schedule_smem(prog, kern.COLS, 4) <= kern.MAX_SMEM
+
+
 def test_block_threads_and_routes():
-    """Block sizes at the main path's shapes, and the K3 element widths."""
+    """Blocks and element widths at the main path's shapes: a block is 32
+    lanes and one warp for each group.  K4 gives a lane two plane words,
+    and K3 the widest element, where the grid still puts
+    TARGET_WARPS_PER_SM warps on each SM of 132: two words (64 word columns
+    a block) for a 4 MiB object, 16-byte elements on its 64 KiB packet
+    rows, narrower ones for small operands."""
     prog = program("rs_encode")
+    assert prog.groups == kern.GROUPS
     W = (4 << 20) // 8 // 32
-    T = kern.block_threads(lambda t: -(-W // t),
-                           lambda t: kern.apply_packedbit_smem(prog, t), 132)
-    assert T == 32 and -(-W // T) >= 2 * 132
-    assert kern.block_threads(lambda t: 10 ** 6,
-                              lambda t: kern.apply_packedbit_smem(prog, t),
-                              132) == 128
-    assert kern.block_threads(lambda t: 1, lambda t: kern.MAX_SMEM + 1,
-                              132) is None
-    assert kern.xor_schedule_route(65536, 0, 256) == "v16"
-    assert kern.xor_schedule_route(1000, 0, 256) == "v4"
-    assert kern.xor_schedule_route(4096, 3, 256) == "b1"
+    assert kern.apply_packedbit_words(prog, W, 132) == 2
+    assert kern.warps_per_sm(prog, W // 2, 132) == 256 * kern.GROUPS / 132
+    assert kern.apply_packedbit_words(prog, 1024, 132) == 1
+    cauchy = program("cauchy_good")
+    assert kern.xor_schedule_route(cauchy, 65536, 0, 256, 132) == "v16"
+    assert kern.xor_schedule_route(cauchy, 1 << 18, 0, 256, 132) == "v16"
+    assert kern.xor_schedule_route(cauchy, 16384, 0, 256, 132) == "v4"
+    assert kern.xor_schedule_route(cauchy, 1000, 0, 256, 132) == "v4"
+    assert kern.xor_schedule_route(cauchy, 4096, 3, 256, 132) == "b1"
+    big = program("k20m6", cse=False)
+    big.n_vals = kern.MAX_SMEM  # no element width fits
+    assert kern.xor_schedule_route(big, 4096, 0, 256, 132) is None
+    assert kern.apply_packedbit_words(big, W, 132) is None
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
