@@ -46,13 +46,40 @@ Phases; any failure exits nonzero before the result line is printed:
                decode matrix over the data ‖ parity planes, from_packedbit,
                and the rebuilt chunks and the parity checked against the
                CPU plugin=jerasure.  Every packed-bit kernel must launch.
-4. split    host prepare / host->device / kernel call (apply_packedbit,
+4. queue    the OSD's path below the daemon, at full width: plugin=cuda
+            reed_sol_van k=8 m=3, StripeInfo(k=8, stripe_width=8 * 4096),
+            64 seeded 4 MiB objects, one BatchingQueue(device="cuda") at its
+            defaults (16 MiB rounds), with every launch count set to 0 just
+            before and read just after (the "queue" run):
+            a. writes through ecutil.batched_encode_async, in turns with the
+               codec called once per object and with a second queue whose
+               window is the 50 ms the reference's batching tests set
+               (per object, queue, wide, wide, queue, per object); every
+               shard list held against the first turn's, 4 objects against
+               the CPU plugin=jerasure; objects/s, GB/s, the ec_cuda
+               counters and K4's launches of each turn;
+            b. degraded reads (chunks 1, 5, 9 lost) through
+               decode_object_async, in the same turns, content checked;
+               GB/s and the schedule LRU's hits and misses;
+            c. 16 re-encodes as one submit_group (a recovery round);
+            d. the other lanes on one object, each against the card's own
+               lane function (launches uncounted): submit_packedbit_resident,
+               submit_packedbit_planes rebuilding 3 chunks, and with
+               CEPH_TPU_PACKEDBIT=0 submit, submit_planar and submit_resident
+               at w=8 and w=16;
+            e. torch.profiler over 64 writes through the wide-window queue
+               (16 rounds of 4 objects): the share of
+               host->device copy time under another round's kernel or
+               device->host copy, and the device's busy share.
+            K1-K4 must each launch in the run.  Each line is "queue {...}"
+            with the card's name and power limit.
+5. split    host prepare / host->device / kernel call (apply_packedbit,
             the lane's one launch) / device->host of one 4 MiB encode (the
             codec API takes host bytes), and the device's busy share over
             back-to-back encodes from torch.profiler.
-5. report   the card, one {"kernels": [...]} line (each row's "launches" is
-            the sum of its phase 3 counts, "launches_by_run" the three), and
-            the result line.
+6. report   the card, one {"kernels": [...]} line (each row's "launches" is
+            the sum of its counts in phases 3 and 4, "launches_by_run" the
+            four runs), and the result line.
 """
 
 from __future__ import annotations
@@ -79,6 +106,12 @@ PLAIN_REPS = 5
 FLUSH_BYTES = 256 << 20      # > the 50 MB L2
 HOST_LEAD_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz
 LOST = (1, 5, 9)             # phase 3's 3-erasure decode
+STRIPE_UNIT = 4096           # the OSD's default EC stripe unit
+QUEUE_OBJECTS = 64           # writes and degraded reads of the queue phase
+RECOVERY_OBJECTS = 16        # re-encodes of its recovery group
+# the coalescing window the reference's batching tests set
+# (CEPH_TPU_BATCH_DELAY=0.05), beside the 2 ms default
+WIDE_WINDOW_S = 0.05
 # the chunks a k=8 m=3 packet-layout decode reads when LOST are lost
 DECODE_CHOSEN = tuple(c for c in range(11) if c not in LOST)[:8]
 
@@ -733,6 +766,299 @@ def phase_main(device):
     return counts, routes
 
 
+# ------------------------------------------------------------ phase queue --
+
+@contextlib.contextmanager
+def _uncounted(device):
+    """Launches inside are comparisons with the lane functions, not the
+    main path: every count is put back as it was."""
+    sync(device)
+    saved = {name: (fn.launches, dict(getattr(fn, "routes", {})))
+             for name, fn in _wrappers().items()}
+    try:
+        yield
+    finally:
+        sync(device)
+        for name, fn in _wrappers().items():
+            fn.launches = saved[name][0]
+            if hasattr(fn, "routes"):
+                fn.routes = saved[name][1]
+
+
+def _interval_union(spans):
+    """Sorted, merged (start, end) intervals."""
+    merged = []
+    for a, b in sorted(spans):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _overlap(a, b, merged) -> float:
+    """Length of (a, b) inside the merged intervals."""
+    return sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged
+               if x < b and y > a)
+
+
+def phase_queue(device, card):
+    """The OSD's path below the daemon on the card: writes, degraded reads
+    and a recovery group through ecutil and one BatchingQueue at its
+    defaults, each held against the codec called once per object; then the
+    other lanes, and the overlap of rounds from a profiler trace.  Returns
+    each kernel's launch count in this run."""
+    import asyncio
+
+    import torch
+
+    from ceph_tpu_torch.ops import cuda_packedbit
+    from ceph_tpu_torch.ops.gf2 import SCHED_PERF
+    from ceph_tpu_torch.parallel.service import BatchingQueue
+    from ceph_tpu_torch.rados import ecutil
+
+    def emit(step, **numbers):
+        print("queue " + json.dumps({"step": step, **numbers, "card": card}))
+
+    codec = _codec("cuda", device, technique="reed_sol_van", k=8, m=3)
+    cpu = _codec("jerasure", "cpu", technique="reed_sol_van", k=8, m=3)
+    sinfo = ecutil.StripeInfo(k=8, stripe_width=8 * STRIPE_UNIT)
+    rng = np.random.default_rng(SEED + 3)
+    objs = [rng.integers(0, 256, OBJECT_SIZE, dtype=np.uint8).tobytes()
+            for _ in range(QUEUE_OBJECTS)]
+    total = QUEUE_OBJECTS * OBJECT_SIZE
+
+    def same(got, want, what):
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(len(g) == len(w) == 11 and all(
+                np.array_equal(a, b) for a, b in zip(g, w)),
+                f"queue {what}: object {i}'s shards differ")
+
+    async def writes(q):
+        return await asyncio.gather(*(ecutil.batched_encode_async(
+            codec, sinfo, o, queue=q) for o in objs))
+
+    q = BatchingQueue(device=device)
+    wide = BatchingQueue(device=device, max_delay=WIDE_WINDOW_S)
+    queues = {"queue": q, "queue_wide": wide}
+    arms = ("per_object", "queue", "queue_wide", "queue_wide", "queue",
+            "per_object")
+    _zero_counts()
+    try:
+        # 1. writes: the codec once per object, and the two queues, in turns
+        want, turns = None, {arm: [] for arm in arms}
+        for arm in arms:
+            qq = queues.get(arm)
+            if qq is not None:
+                qq.perf.reset()
+            k4 = cuda_packedbit.apply_packedbit.launches
+            t0 = time.perf_counter()
+            if qq is not None:
+                got = asyncio.run(writes(qq))
+            else:
+                got = [ecutil.batched_encode(codec, sinfo, o) for o in objs]
+            seconds = time.perf_counter() - t0
+            turns[arm].append(seconds)
+            if want is None:
+                want = got
+            else:
+                same(got, want, f"writes ({arm})")
+            emit("writes", arm=arm, objects=QUEUE_OBJECTS, seconds=seconds,
+                 objects_per_s=QUEUE_OBJECTS / seconds,
+                 gb_per_s=total / seconds / 1e9,
+                 k4_launches=cuda_packedbit.apply_packedbit.launches - k4)
+            if qq is not None:
+                d = qq.perf.dump()
+                emit("counters", arm=arm, max_delay_s=qq.max_delay,
+                     **{key: d[key] for key in (
+                         "dispatch", "flush_bytes", "flush_delay",
+                         "flush_forced", "overlapped_rounds", "breaker_trip",
+                         "breaker_fallback")},
+                     group_size=d["group_size"],
+                     queue_wait_avg_s=qq.perf.avg("queue_wait"),
+                     dispatch_dev_avg_s=qq.perf.avg("dispatch_dev"))
+        for i in range(4):
+            same([want[i]], [ecutil.batched_encode(cpu, sinfo, objs[i])],
+                 "writes against CPU plugin=jerasure")
+        emit("writes checked", objects=QUEUE_OBJECTS,
+             against_cpu_jerasure=4,
+             **{f"{arm}_speedup": sum(turns["per_object"]) / sum(turns[arm])
+                for arm in queues})
+
+        # 2. degraded reads: chunks 1, 5, 9 lost
+        blobs = [{c: s for c, s in enumerate(shards) if c not in LOST}
+                 for shards in want]
+
+        async def reads(qq):
+            return await asyncio.gather(*(ecutil.decode_object_async(
+                codec, sinfo, b, OBJECT_SIZE, queue=qq) for b in blobs))
+
+        for arm in arms:
+            qq = queues.get(arm)
+            before = SCHED_PERF.dump()
+            d0 = qq.dispatches if qq is not None else 0
+            t0 = time.perf_counter()
+            if qq is not None:
+                got = asyncio.run(reads(qq))
+            else:
+                got = [ecutil.decode_object(codec, sinfo, b, OBJECT_SIZE)
+                       for b in blobs]
+            seconds = time.perf_counter() - t0
+            check(got == objs, f"queue degraded reads ({arm}): content")
+            after = SCHED_PERF.dump()
+            emit("degraded reads", arm=arm, lost=list(LOST),
+                 seconds=seconds, gb_per_s=total / seconds / 1e9,
+                 dispatches=(qq.dispatches - d0) if qq is not None else 0,
+                 sched_hit=after["hit"] - before["hit"],
+                 sched_miss=after["miss"] - before["miss"])
+
+        # 3. recovery: one group of re-encodes, one submit_group
+        d0, g0 = q.dispatches, q.perf.get("submit_group")
+        t0 = time.perf_counter()
+        got = asyncio.run(ecutil.batched_encode_group_async(
+            codec, sinfo, objs[:RECOVERY_OBJECTS], queue=q))
+        seconds = time.perf_counter() - t0
+        same(got, want[:RECOVERY_OBJECTS], "recovery group")
+        check(q.perf.get("submit_group") == g0 + 1, "recovery: one group")
+        emit("recovery", objects=RECOVERY_OBJECTS, seconds=seconds,
+             dispatches=q.dispatches - d0, submit_group=1)
+
+        phase_queue_lanes(device, q, codec, sinfo, objs[0], want[0], emit)
+
+        # 5. the overlap of rounds, from one profiled window of 64 writes
+        # through the wide-window queue (16 rounds of 4 objects)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            d0 = wide.dispatches
+            t0 = time.perf_counter()
+            got = asyncio.run(writes(wide))
+            sync(device)
+            wall_us = (time.perf_counter() - t0) * 1e6
+            rounds = wide.dispatches - d0
+        same(got, want, "profiled writes")
+        spans = {"h2d": [], "d2h": [], "kernel": [], "other": []}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.name.lower()
+            kind = ("h2d" if "htod" in name else "d2h" if "dtoh" in name
+                    else "other" if "memset" in name or "memcpy" in name
+                    else "kernel")
+            spans[kind].append((e.time_range.start, e.time_range.end))
+        check(spans["h2d"] and spans["kernel"],
+              f"profiler saw no copies or kernels: {dict((k, len(v)) for k, v in spans.items())}")
+        others = _interval_union(spans["kernel"] + spans["d2h"])
+        h2d_us = sum(b - a for a, b in spans["h2d"])
+        busy_us = sum(b - a for a, b in _interval_union(
+            [iv for v in spans.values() for iv in v]))
+        emit("overlap", arm="queue_wide", rounds=rounds,
+             wall_ms=wall_us / 1e3,
+             h2d_ms=h2d_us / 1e3,
+             h2d_overlapped_share=sum(_overlap(a, b, others)
+                                      for a, b in spans["h2d"]) / h2d_us,
+             device_busy_ms=busy_us / 1e3,
+             device_busy_share=busy_us / wall_us,
+             events={k: len(v) for k, v in spans.items()})
+    finally:
+        q.close()
+        wide.close()
+    counts, _ = _read_counts(device, "(queue)")
+    for name in ("apply_bytes_w8", "gf2_matmul", "xor_schedule",
+                 "apply_packedbit"):
+        check(counts[name] > 0, f"{name} never launched in the queue run")
+    return counts
+
+
+def phase_queue_lanes(device, q, codec, sinfo, obj, shards, emit) -> None:
+    """Step 4 of the queue phase: the lanes the writes do not take, each
+    held against the card's own lane function (uncounted) on one 4 MiB
+    object, and the parity against the CPU plugin=jerasure shards."""
+    import torch
+
+    from ceph_tpu_torch.ec.matrices import matrix_to_bitmatrix
+    from ceph_tpu_torch.ops import gf2 as lane
+    from ceph_tpu_torch.rados import ecutil
+
+    flat = np.stack(shards[:8])  # the object's [8, 524288] data rows
+    parity = np.stack(shards[8:])
+    data = torch.from_numpy(flat).to(device)
+    bm = matrix_to_bitmatrix(codec.matrix, 8)
+
+    # packedbit_resident: parity bytes and data ‖ parity plane words
+    got_parity, planes = q.submit_packedbit_resident(
+        bm.astype(np.uint8), flat, 8, 3).result(timeout=120)
+    check(np.array_equal(got_parity, parity),
+          "submit_packedbit_resident parity differs from CPU jerasure")
+    with _uncounted(device):
+        want_planes = lane.gf2_encode_packedbit_resident(bm, data)[1]
+    check(torch.equal(planes, want_planes),
+          "submit_packedbit_resident planes differ from the lane function")
+
+    # packedbit_planes: chunks 0, 4, 7 rebuilt from the other planes
+    lost = (0, 4, 7)
+    chosen, inv = codec.decode_selection(set(lost), set(range(11)) - set(lost))
+    decode = resident_decode_bitmatrix(
+        matrix_to_bitmatrix(inv[list(lost)], 8), chosen)
+    damaged = planes.clone()
+    for c in lost:
+        damaged[c * 8:(c + 1) * 8] = 0
+    rebuilt = q.submit_packedbit_planes(decode, damaged, 8,
+                                        len(lost)).result(timeout=120)
+    with _uncounted(device):
+        rows = lane.from_packedbit(rebuilt, len(lost)).cpu().numpy()
+    for i, c in enumerate(lost):
+        check(np.array_equal(rows[i, :flat.shape[1]], flat[c]),
+              f"submit_packedbit_planes rebuilt chunk {c} wrong")
+    emit("lanes packedbit", object_bytes=OBJECT_SIZE, planes=list(planes.shape),
+         rebuilt=list(lost), checked=True)
+
+    # the int8-plane lanes: w=8 with the packed-bit lane off, and w=16
+    saved = os.environ.get("CEPH_TPU_PACKEDBIT")
+    os.environ["CEPH_TPU_PACKEDBIT"] = "0"
+    try:
+        for w in (8, 16):
+            cdc = (codec if w == 8 else
+                   _codec("cuda", device, technique="reed_sol_van", k=8, m=3,
+                          w=16))
+            cpu = _codec("jerasure", "cpu", technique="reed_sol_van", k=8,
+                         m=3, w=w)
+            before = q.perf.get("submit_packed")
+            got = ecutil.batched_encode(cdc, sinfo, obj, queue=q)
+            check(q.perf.get("submit_packed") == before + 1,
+                  f"w={w} write did not take the packed lane")
+            want = (shards if w == 8 else ecutil.batched_encode(cpu, sinfo, obj))
+            check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                  f"w={w} write through `submit` differs from CPU jerasure")
+            wparity = np.stack(want[8:])
+            bmw = matrix_to_bitmatrix(cdc.matrix, w)
+            bits = lane.unpack_bits_bytes(data, w)
+            planar = q.submit_planar(bmw.astype(np.int8), bits, w,
+                                     3).result(timeout=120)
+            res_parity, res_bits = q.submit_resident(
+                bmw.astype(np.int8), flat, w, 3).result(timeout=120)
+            with _uncounted(device):
+                mb = lane.bitmatrix_to_tensor(bmw, device)
+                check(torch.equal(planar, lane.gf2_matmul(mb, bits)),
+                      f"w={w} submit_planar differs from gf2_matmul")
+                check(torch.equal(res_bits, lane.gf2_encode_resident(
+                    mb, data, w, 3)[1]),
+                      f"w={w} submit_resident planes differ")
+            check(np.array_equal(lane.pack_bits_bytes(planar, w, 3)
+                                 .cpu().numpy(), wparity),
+                  f"w={w} submit_planar parity differs from CPU jerasure")
+            check(np.array_equal(res_parity, wparity),
+                  f"w={w} submit_resident parity differs from CPU jerasure")
+            emit("lanes int8", w=w, packed=True, planar=True, resident=True,
+                 checked=True)
+    finally:
+        if saved is None:
+            os.environ.pop("CEPH_TPU_PACKEDBIT")
+        else:
+            os.environ["CEPH_TPU_PACKEDBIT"] = saved
+
+
 # ---------------------------------------------------------------- phase 4 --
 
 def phase_split(device) -> None:
@@ -816,6 +1142,8 @@ def main() -> int:
         phase_build()
         rows = phase_kernels("cuda")
         counts, routes = phase_main("cuda")
+        for name, n in phase_queue("cuda", card).items():
+            counts[name]["queue"] = n
         phase_split("cuda")
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

@@ -6,6 +6,8 @@ Imports nothing of JAX or ceph_tpu, so it runs where only the port does:
 
 Where CUDA is absent every test here skips."""
 
+import asyncio
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,8 @@ from ceph_tpu_torch.ec.plugins.cuda import CudaPlugin
 from ceph_tpu_torch.ec.plugins.jerasure import JerasurePlugin
 from ceph_tpu_torch.ops import cuda_gf2, cuda_packedbit
 from ceph_tpu_torch.ops import gf2 as port_gf2
+from ceph_tpu_torch.parallel.service import BatchingQueue
+from ceph_tpu_torch.rados import ecutil
 
 pytestmark = pytest.mark.cuda
 
@@ -297,3 +301,93 @@ def test_seam_identity_with_lane_on_and_off(card, monkeypatch, packedbit,
         assert np.array_equal(ec[c], ej[c])
     for c in (1, 5, 9):
         assert np.array_equal(out[c], ej[c])
+
+
+def test_queue_matches_cpu_queue_and_waits_for_its_rounds(card):
+    """Concurrent 1 MiB writes and a degraded read through a CUDA queue
+    (two objects a round, so rounds overlap) equal the CPU queue's, and no
+    future resolves before the `done` event of its round has completed."""
+    codec = JerasurePlugin().factory(dict(technique="reed_sol_van", k="8",
+                                          m="3", plugin="jerasure"))
+    sinfo = ecutil.StripeInfo(k=8, stripe_width=8 * 4096)
+    rng = np.random.default_rng(17)
+    bufs = [rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+            for _ in range(6)]
+    lost = (1, 5, 9)
+
+    async def drive(q):
+        outs = await asyncio.gather(*(ecutil.batched_encode_async(
+            codec, sinfo, b, queue=q) for b in bufs))
+        read = await ecutil.decode_object_async(
+            codec, sinfo, {c: s for c, s in enumerate(outs[0])
+                           if c not in lost}, len(bufs[0]), queue=q)
+        return outs, read
+
+    gpu = BatchingQueue(device=card, max_pending_bytes=2 << 20)
+    cpu = BatchingQueue(device="cpu")
+    seen = []
+    complete = gpu._complete_safe
+
+    def watched(launched):
+        for lc in launched:
+            for req in lc.group.requests:
+                req.future.add_done_callback(
+                    lambda f, ev=lc.done: seen.append(ev.query()))
+        complete(launched)
+
+    gpu._complete_safe = watched
+    try:
+        g_outs, g_read = asyncio.run(asyncio.wait_for(drive(gpu), 120))
+        c_outs, c_read = asyncio.run(asyncio.wait_for(drive(cpu), 120))
+    finally:
+        gpu.close()
+        cpu.close()
+    for g, c in zip(g_outs, c_outs):
+        for a, b in zip(g, c):
+            assert np.array_equal(a, b)
+    assert g_read == c_read == bufs[0]
+    assert len(seen) == len(bufs) + 1 and all(seen)
+    assert gpu.dispatches >= 3 and gpu.perf.get("breaker_trip") == 0
+    assert not gpu._worker.is_alive()
+
+
+def test_queue_plane_lanes_match_cpu_queue(card):
+    """The resident and plane lanes on the card equal the CPU queue's; one
+    device input is written on a side stream and submitted from it, so the
+    queue must wait for that stream."""
+    rng = np.random.default_rng(19)
+    bm = matrix_to_bitmatrix(vandermonde_coding_matrix(8, 3, 8), 8)
+    data = [rng.integers(0, 256, (8, B), dtype=np.uint8)
+            for B in (4096, 8192)]
+    side = torch.cuda.Stream()
+    results = {}
+    for dev in (card, torch.device("cpu")):
+        q = BatchingQueue(device=dev, max_delay=0.01)
+        try:
+            planes = [port_gf2.to_packedbit(torch.from_numpy(d).to(dev))
+                      for d in data]
+            bits = [port_gf2.unpack_bits_bytes(torch.from_numpy(d).to(dev), 8)
+                    for d in data]
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(1_000_000)  # the copy lands late
+                planes[0] = planes[0].clone()
+                futs = [q.submit_packedbit_planes(bm.astype(np.uint8), p, 8,
+                                                  3) for p in planes]
+            futs += [q.submit_packedbit_resident(bm.astype(np.uint8), d, 8, 3)
+                     for d in data]
+            futs += [q.submit_resident(bm.astype(np.int8), d, 8, 3)
+                     for d in data]
+            futs += [q.submit_planar(bm.astype(np.int8), b, 8, 3)
+                     for b in bits]
+            results[dev.type] = [f.result(timeout=60) for f in futs]
+        finally:
+            q.close()
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    for g, c in zip(results["cuda"], results["cpu"]):
+        g = g if isinstance(g, tuple) else (g,)
+        c = c if isinstance(c, tuple) else (c,)
+        for a, b in zip(g, c):
+            assert np.array_equal(host(a), host(b))
