@@ -31,22 +31,27 @@ Device, streams and staging.  The queue runs on the CUDA device unless
 ``device="cpu"`` is given (resolve_device; it raises without a card).  On
 the CPU every lane runs its kernels' plain versions, synchronously.  On
 CUDA the queue owns two streams.  A round's byte requests are copied into a
-pinned host buffer and sent to the card with a non-blocking copy on the
-copy-in stream; the lane's kernel and the copy of its byte result into
-another pinned buffer run on the compute stream, after an event of the
-copy-in; an event recorded after them is the round's `done`.  So round
-N+1's host->device copy can run under round N's kernel and device->host
-copy.  (`overlapped_rounds` counts rounds launched while the previous one
-was still in flight: the launch order, not what the device overlapped,
-which only a profiler trace shows.)  Pinned buffers come from a small
-pool, grown on demand and reused only after the `done` event of the round
-that used them.  A round's futures resolve only after its `done` event has
-completed, and fan-out copies out of the pinned buffer.  Device tensors a
-caller submits are waited for (an event recorded on the submitter's stream
-at submit) and kept alive for the compute stream (record_stream); device
-tensors a caller receives are record_stream'ed on the submitter's stream,
-so that freeing them there cannot hand their memory to the next round.
-Columns are not padded to buckets: the kernels take any B.
+pinned host buffer (torch's caching host allocator: freed blocks are reused,
+and a block freed while a non-blocking copy reads it waits for that copy)
+and sent to the card with a non-blocking copy on the copy-in stream; the
+lane's kernel and the copy of its byte result into another pinned buffer
+run on the compute stream, after an event of the copy-in; an event recorded
+after them is the round's `done`.  So round N+1's host->device copy can run
+under round N's kernel and device->host copy, if the host stages N+1 before
+the device has finished N.  (`overlapped_rounds` counts rounds launched
+while the previous one was still in flight: the launch order, not what the
+device overlapped, which only a profiler trace shows.)  The copy into
+pinned memory is a host memcpy on the worker thread (JAX's device_put
+returns at once), so the device has mostly finished a round before the next
+is staged: the worker fans a round out as soon as its `done` event has
+completed, unless the next round is already due, which it launches first.
+A round's futures resolve only after its `done` event has completed, and
+fan-out copies out of the pinned buffer.  Device tensors a caller submits
+are waited for (an event recorded on the submitter's stream at submit) and
+kept alive for the compute stream (record_stream); device tensors a caller
+receives are record_stream'ed on the submitter's stream, so that freeing
+them there cannot hand their memory to the next round.  Columns are not
+padded to buckets: the kernels take any B.
 
 Device-dispatch circuit breaker, as the reference's but with no CPU route:
 every lane has a breaker.  CLOSED: groups go to the device; a launch or
@@ -63,8 +68,8 @@ the reference would serve a group on the host, the port fails it, so
 Environment, read at construction, the reference's names:
 CEPH_TPU_BATCH_DELAY (default max_delay, seconds), CEPH_TPU_DISPATCH_TIMEOUT
 (watchdog seconds), CEPH_TPU_INJECT_DISPATCH_DELAY (seconds added to every
-dispatch).  ``use_pallas`` is accepted and ignored; ``mesh`` may be None or
-False, one device, until the mesh is ported.
+dispatch).  The queue drives one device; the reference's ``mesh`` and
+``use_pallas`` arguments are not taken.
 
 Observability: the `ec_cuda` counter set (schema in _build_ec_cuda_perf,
 the reference's `ec_tpu` names and kinds), `dump_timeline()` for the
@@ -114,7 +119,10 @@ def _build_ec_cuda_perf() -> PerfCounters:
                                        was in flight (launch order)
       bytes                u64         bytes dispatched
       queue_wait           longrunavg  submit -> launch wait per request
-      dispatch_dev         longrunavg  launch -> fan-out seconds per dispatch
+      dispatch_dev         longrunavg  launch -> fan-out seconds per dispatch, host
+                                       included: staging into pinned memory,
+                                       the device's work, the wait until the
+                                       worker sees it done, the fan-out
       group_size           histogram   coalesced requests per dispatch (pow2 buckets)
       submit_group         u64         multi-item submit_group() calls
       group_submit_size    histogram   items per submit_group() call
@@ -140,7 +148,8 @@ def _build_ec_cuda_perf() -> PerfCounters:
         b.add_u64_counter(f"bytes_{lane}",
                           f"packed-equivalent bytes submitted on {lane}")
     b.add_time_avg("queue_wait", "submit -> launch coalescing wait")
-    b.add_time_avg("dispatch_dev", "launch -> fan-out device time")
+    b.add_time_avg("dispatch_dev",
+                   "launch -> fan-out seconds: staging, device, fan-out")
     b.add_histogram("group_size", "coalesced requests per dispatch")
     b.add_u64_counter("submit_group", "multi-item group submits")
     b.add_histogram("group_submit_size", "items per group submit")
@@ -220,59 +229,22 @@ class _Launched:
     span: Any = None  # child of a submitter's trace, or queue-tracer root
     wait_s: float = 0.0  # mean submit->launch wait across the group
     done: Any = None  # CUDA event after the round's last operation
-    pinned: List[torch.Tensor] = field(default_factory=list)
 
-
-class _PinnedPool:
-    """Pinned host buffers for staging, reused.  A buffer is handed out
-    whole (at least the bytes asked for, sizes rounded up to a power of two
-    so that rounds of similar size share buffers) and given back only after
-    the round that used it has completed; at most `keep` idle buffers are
-    kept."""
-
-    MIN_BYTES = 1 << 20
-
-    def __init__(self, keep: int = 8):
-        self.keep = keep
-        self.allocated = 0  # buffers allocated over the pool's life
-        self._free: List[torch.Tensor] = []
-        self._lock = threading.Lock()
-
-    def take(self, nbytes: int) -> torch.Tensor:
-        with self._lock:
-            # by index: == on tensors compares elements
-            fits = [i for i, b in enumerate(self._free) if b.numel() >= nbytes]
-            if fits:
-                return self._free.pop(
-                    min(fits, key=lambda i: self._free[i].numel()))
-            self.allocated += 1
-        return self._alloc(max(self.MIN_BYTES,
-                               1 << max(0, nbytes - 1).bit_length()))
-
-    @staticmethod
-    def _alloc(size: int) -> torch.Tensor:
-        return torch.empty(size, dtype=torch.uint8, pin_memory=True)
-
-    def give(self, bufs: List[torch.Tensor]) -> None:
-        with self._lock:
-            for buf in bufs:
-                if len(self._free) < self.keep:
-                    self._free.append(buf)
+    def finished(self) -> bool:
+        return self.done is None or self.done.query()
 
 
 class BatchingQueue:
+    #: seconds between polls of an in-flight round's `done` event
+    POLL_S = 0.0005
+
     def __init__(
         self,
         # 16 MiB of packed bytes a round (the reference's default)
         max_pending_bytes: int = 16 << 20,
         max_delay: Optional[float] = None,
-        use_pallas: Optional[bool] = None,
-        mesh=None,
         device: DeviceLike = None,
     ):
-        if mesh:
-            raise ValueError("mesh dispatch is not ported: pass mesh=None "
-                             "or mesh=False for one device")
         self.device = resolve_device(device)
         self.max_pending_bytes = max_pending_bytes
         # an explicit max_delay wins over CEPH_TPU_BATCH_DELAY
@@ -299,9 +271,8 @@ class BatchingQueue:
         if self.device.type == "cuda":
             self._copy_in = torch.cuda.Stream(self.device)
             self._compute = torch.cuda.Stream(self.device)
-            self._pool = _PinnedPool()
         else:
-            self._copy_in = self._compute = self._pool = None
+            self._copy_in = self._compute = None
         # bit-matrices on the device for the int8-plane lanes, by content
         self._mats: "OrderedDict" = OrderedDict()
         self._mats_lock = threading.Lock()
@@ -586,10 +557,13 @@ class BatchingQueue:
     def _run(self) -> None:
         # double-buffered: each round is staged and launched without
         # waiting, and the previous round is completed after it, so round
-        # N+1's host->device copy runs under round N's kernel and
+        # N+1's host->device copy can run under round N's kernel and
         # device->host copy.  A launched round is held in flight only while
-        # more work is queued, so an isolated batch completes at once.  An
-        # exception fails the futures in hand; it never ends the thread.
+        # more work is queued and its `done` event has not completed (the
+        # worker polls it while it waits), so a round the device has
+        # finished is fanned out without waiting for the next round to be
+        # cut.  An exception fails the futures in hand; it never ends the
+        # thread.
         inflight: Optional[list] = None
         while True:
             groups: List[_Group] = []
@@ -600,19 +574,24 @@ class BatchingQueue:
                         if self._pending >= self.max_pending_bytes:
                             cause = "bytes"
                             break
+                        if inflight is not None and all(
+                                lc.finished() for lc in inflight):
+                            break  # the device is done: fan it out now
                         if self._oldest is not None:
                             remaining = self.max_delay - (
                                 time.monotonic() - self._oldest)
                             if remaining <= 0:
                                 cause = "delay"
                                 break
+                            if inflight is not None:
+                                remaining = min(remaining, self.POLL_S)
                             self._cv.wait(timeout=remaining)
                         elif inflight is not None:
                             break  # nothing queued: fetch the in-flight round
                         else:
                             self._cv.wait()
                     stop = self._stop
-                    if not stop:
+                    if not stop and cause is not None:
                         groups = self._take_locked(
                             budget=self.max_pending_bytes)
                 if stop:
@@ -785,10 +764,9 @@ class BatchingQueue:
             # counted into the dispatch's elapsed time (t_launch = now), so
             # the watchdog sees the slow dispatch
             time.sleep(self.inject_dispatch_delay)
-        pinned: List[torch.Tensor] = []
         try:
             with self._on_device():
-                state = getattr(self, f"_launch_{g.kind}")(g, pinned)
+                state = getattr(self, f"_launch_{g.kind}")(g)
                 done = None
                 if self._compute is not None:
                     done = torch.cuda.Event()
@@ -802,7 +780,7 @@ class BatchingQueue:
             return None
         if sp is not None:
             sp.event("launched")
-        return _Launched(g, state, now, sp, wait_s, done, pinned)
+        return _Launched(g, state, now, sp, wait_s, done)
 
     def _complete_safe(self, launched: list) -> None:
         for lc in launched:
@@ -817,9 +795,7 @@ class BatchingQueue:
                     lc.span.finish()
                 self._breaker_failure(g.kind)
                 self._fail_group(g, e, lc.wait_s)
-                continue  # its pinned buffers are not reused
-            if self._pool is not None:
-                self._pool.give(lc.pinned)
+                continue
             device_s = time.monotonic() - lc.t_launch
             if self.dispatch_timeout and device_s > self.dispatch_timeout:
                 # completed, but over the watchdog's budget: the lane is
@@ -862,7 +838,7 @@ class BatchingQueue:
 
     # -- staging (runs under _on_device) -----------------------------------
 
-    def _stage(self, g: _Group, pinned: List[torch.Tensor]):
+    def _stage(self, g: _Group):
         """Coalesce a group's packed uint8 requests column-wise into one
         [n, sum(B)] batch on the device: on CUDA through a pinned buffer
         and a non-blocking copy on the copy-in stream, which the compute
@@ -876,9 +852,7 @@ class BatchingQueue:
             batch = (np.concatenate(regions, axis=1) if len(regions) > 1
                      else np.ascontiguousarray(regions[0]))
             return widths, torch.from_numpy(batch), nbytes
-        buf = self._pool.take(nbytes)
-        pinned.append(buf)
-        host = buf[:nbytes].view(rows, cols)
+        host = torch.empty((rows, cols), dtype=torch.uint8, pin_memory=True)
         view = host.numpy()
         off = 0
         for width, req in zip(widths, g.requests):
@@ -894,16 +868,13 @@ class BatchingQueue:
         self._compute.wait_event(staged)
         return widths, batch, nbytes
 
-    def _to_host(self, out: torch.Tensor,
-                 pinned: List[torch.Tensor]) -> np.ndarray:
+    def _to_host(self, out: torch.Tensor) -> np.ndarray:
         """A uint8 device result as a numpy array the fan-out may read once
         the round's `done` event has completed: on CUDA a view of a pinned
         buffer filled by a non-blocking copy on the compute stream."""
         if self._compute is None:
             return out.numpy()
-        buf = self._pool.take(out.numel())
-        pinned.append(buf)
-        host = buf[:out.numel()].view(out.shape)
+        host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
         host.copy_(out, non_blocking=True)
         return host.numpy()
 
@@ -956,11 +927,11 @@ class BatchingQueue:
 
     # -- lanes ---------------------------------------------------------------
 
-    def _launch_packed(self, g: _Group, pinned):
-        widths, batch, nbytes = self._stage(g, pinned)
+    def _launch_packed(self, g: _Group):
+        widths, batch, nbytes = self._stage(g)
         out = gf2_apply_bytes(self._device_mbits(g.mbits), batch, g.w,
                               g.out_rows)
-        return widths, self._to_host(out, pinned), nbytes
+        return widths, self._to_host(out), nbytes
 
     def _complete_packed(self, g: _Group, state) -> None:
         widths, out, nbytes = state
@@ -972,7 +943,7 @@ class BatchingQueue:
             self._resolve(req, out[:, off:off + width].copy())
             off += width
 
-    def _launch_planar(self, g: _Group, pinned):
+    def _launch_planar(self, g: _Group):
         """Matmul-only dispatch over int8 planes on the device; results
         stay there as planes."""
         widths = [req.regions.shape[1] for req in g.requests]
@@ -988,14 +959,14 @@ class BatchingQueue:
             self._resolve(req, out[:, off:off + width])
             off += width
 
-    def _launch_resident(self, g: _Group, pinned):
+    def _launch_resident(self, g: _Group):
         """Residency write path: one call (unpack, matmul, parity pack),
         both products fanned out: packed parity for persistence, planes to
         stay on the device."""
-        widths, batch, nbytes = self._stage(g, pinned)
+        widths, batch, nbytes = self._stage(g)
         packed, all_bits = gf2_encode_resident(
             self._device_mbits(g.mbits), batch, g.w, g.out_rows)
-        return (widths, self._to_host(packed, pinned), all_bits, nbytes,
+        return (widths, self._to_host(packed), all_bits, nbytes,
                 batch.shape[1])
 
     def _complete_resident(self, g: _Group, state) -> None:
@@ -1011,24 +982,24 @@ class BatchingQueue:
                                 all_bits[:, c0:c1]))
             off += width
 
-    def _launch_packedbit(self, g: _Group, pinned):
+    def _launch_packedbit(self, g: _Group):
         """One K4 launch over the coalesced packed rows: bytes -> plane
         words -> XOR schedule -> bytes, the schedule from the LRU."""
-        widths, batch, nbytes = self._stage(g, pinned)
+        widths, batch, nbytes = self._stage(g)
         out = gf2_apply_packedbit(g.mbits, batch)
-        return widths, self._to_host(out, pinned), nbytes
+        return widths, self._to_host(out), nbytes
 
     # the same packed-byte fan-out
     _complete_packedbit = _complete_packed
 
-    def _launch_packedbit_resident(self, g: _Group, pinned):
+    def _launch_packedbit_resident(self, g: _Group):
         """Packed-bit residency write path: one K4 launch, both products
         fanned out (parity bytes, data and parity plane words).  Request
         widths are whole words (submit_packedbit_resident checks), so the
         word slices of the fan-out are exact."""
-        widths, batch, nbytes = self._stage(g, pinned)
+        widths, batch, nbytes = self._stage(g)
         packed, planes = gf2_encode_packedbit_resident(g.mbits, batch)
-        return widths, self._to_host(packed, pinned), planes, nbytes
+        return widths, self._to_host(packed), planes, nbytes
 
     def _complete_packedbit_resident(self, g: _Group, state) -> None:
         # every plane result is a slice of the one batched tensor: sibling
@@ -1045,7 +1016,7 @@ class BatchingQueue:
                                 planes[:, off // 32:(off + width) // 32]))
             off += width
 
-    def _launch_packedbit_planes(self, g: _Group, pinned):
+    def _launch_packedbit_planes(self, g: _Group):
         """Schedule-only dispatch over plane words on the device (one K3
         launch); results stay there as words."""
         widths = [req.regions.shape[1] for req in g.requests]  # words

@@ -57,11 +57,18 @@ Phases; any failure exits nonzero before the result line is printed:
                (per object, queue, wide, wide, queue, per object); every
                shard list held against the first turn's, 4 objects against
                the CPU plugin=jerasure; objects/s, GB/s, the ec_cuda
-               counters and K4's launches of each turn;
+               counters, the median host ms of the queue's staging and
+               fan-out of a round inside the turn, and K4's launches of
+               each turn;
             b. degraded reads (chunks 1, 5, 9 lost) through
                decode_object_async, in the same turns, content checked;
                GB/s and the schedule LRU's hits and misses;
             c. 16 re-encodes as one submit_group (a recovery round);
+               then the host's parts of a write, timed alone (medians):
+               ecutil's re-interleave of one object into shard rows, the
+               queue's staging of a 16 MiB round into pinned memory (host
+               copy and the enqueue of its host->device copy; the first
+               call apart) and its fan-out of that round's parity;
             d. the other lanes on one object, each against the card's own
                lane function (launches uncounted): submit_packedbit_resident,
                submit_packedbit_planes rebuilding 3 chunks, and with
@@ -70,7 +77,8 @@ Phases; any failure exits nonzero before the result line is printed:
             e. torch.profiler over 64 writes through the wide-window queue
                (16 rounds of 4 objects): the share of
                host->device copy time under another round's kernel or
-               device->host copy, and the device's busy share.
+               device->host copy, the device's busy share, and the pinned
+               host allocations the window made (cudaHostAlloc calls).
             K1-K4 must each launch in the run.  Each line is "queue {...}"
             with the card's name and power limit.
 5. split    host prepare / host->device / kernel call (apply_packedbit,
@@ -84,6 +92,7 @@ Phases; any failure exits nonzero before the result line is printed:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -849,8 +858,11 @@ def phase_queue(device, card):
         want, turns = None, {arm: [] for arm in arms}
         for arm in arms:
             qq = queues.get(arm)
+            timed = {"_stage": [], "_complete_packedbit": []}
             if qq is not None:
                 qq.perf.reset()
+                for name, into in timed.items():
+                    _time_calls(qq, name, into)
             k4 = cuda_packedbit.apply_packedbit.launches
             t0 = time.perf_counter()
             if qq is not None:
@@ -868,6 +880,8 @@ def phase_queue(device, card):
                  gb_per_s=total / seconds / 1e9,
                  k4_launches=cuda_packedbit.apply_packedbit.launches - k4)
             if qq is not None:
+                for name in timed:
+                    del qq.__dict__[name]
                 d = qq.perf.dump()
                 emit("counters", arm=arm, max_delay_s=qq.max_delay,
                      **{key: d[key] for key in (
@@ -876,7 +890,10 @@ def phase_queue(device, card):
                          "breaker_fallback")},
                      group_size=d["group_size"],
                      queue_wait_avg_s=qq.perf.avg("queue_wait"),
-                     dispatch_dev_avg_s=qq.perf.avg("dispatch_dev"))
+                     dispatch_dev_avg_s=qq.perf.avg("dispatch_dev"),
+                     stage_in_turn_ms=statistics.median(timed["_stage"]),
+                     fan_out_in_turn_ms=statistics.median(
+                         timed["_complete_packedbit"]))
         for i in range(4):
             same([want[i]], [ecutil.batched_encode(cpu, sinfo, objs[i])],
                  "writes against CPU plugin=jerasure")
@@ -922,6 +939,8 @@ def phase_queue(device, card):
         check(q.perf.get("submit_group") == g0 + 1, "recovery: one group")
         emit("recovery", objects=RECOVERY_OBJECTS, seconds=seconds,
              dispatches=q.dispatches - d0, submit_group=1)
+        emit("host parts", **_host_parts(device, codec, sinfo, objs,
+                                         q.max_pending_bytes // OBJECT_SIZE))
 
         phase_queue_lanes(device, q, codec, sinfo, objs[0], want[0], emit)
 
@@ -939,8 +958,11 @@ def phase_queue(device, card):
             rounds = wide.dispatches - d0
         same(got, want, "profiled writes")
         spans = {"h2d": [], "d2h": [], "kernel": [], "other": []}
+        api = collections.Counter()  # CUDA runtime calls the host made
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA:
+                if e.name.startswith("cuda"):
+                    api[e.name] += 1
                 continue
             name = e.name.lower()
             kind = ("h2d" if "htod" in name else "d2h" if "dtoh" in name
@@ -960,7 +982,10 @@ def phase_queue(device, card):
                                       for a, b in spans["h2d"]) / h2d_us,
              device_busy_ms=busy_us / 1e3,
              device_busy_share=busy_us / wall_us,
-             events={k: len(v) for k, v in spans.items()})
+             events={k: len(v) for k, v in spans.items()},
+             host_allocs=sum(n for name, n in api.items()
+                             if "HostAlloc" in name or "MallocHost" in name),
+             runtime_calls=sum(api.values()))
     finally:
         q.close()
         wide.close()
@@ -969,6 +994,77 @@ def phase_queue(device, card):
                  "apply_packedbit"):
         check(counts[name] > 0, f"{name} never launched in the queue run")
     return counts
+
+
+def _time_calls(obj, name: str, into: list) -> None:
+    """Shadow obj.<name> with a wrapper that appends the host milliseconds
+    of each call to `into`; `del obj.__dict__[name]` takes it away."""
+    real = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            into.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(obj, name, timed)
+
+
+def _host_parts(device, codec, sinfo, objs, per_round: int) -> dict:
+    """Host milliseconds, medians of TIMING_REPS, of a queue write's parts
+    outside the device, each timed alone on the code the path runs:
+    ecutil's re-interleave of one object into [k, n] shard rows
+    (_encode_plan_parts), the queue's staging of a round of `per_round`
+    objects (the copy into pinned memory and the enqueue of the
+    host->device copy; the first call reported apart) and its fan-out
+    of that round's parity to the requests.  No kernel is launched."""
+    from concurrent.futures import Future
+
+    import torch
+
+    from ceph_tpu_torch.parallel import service
+    from ceph_tpu_torch.rados import ecutil
+
+    n_stripes = OBJECT_SIZE // sinfo.stripe_width
+    arrs = [np.frombuffer(o, dtype=np.uint8).reshape(
+        n_stripes, sinfo.k, sinfo.chunk_size) for o in objs[:per_round]]
+    plans = [ecutil._encode_plan_parts(codec, sinfo, a, n_stripes)
+             for a in arrs]
+    kind, mat, _, w, m, _ = plans[0]
+    probe = service.BatchingQueue(device=device, max_delay=60.0)
+    parts = {"re_interleave_ms": [], "stage_ms": [], "fan_out_ms": []}
+    try:
+        for i in range(TIMING_REPS + 1):
+            t0 = time.perf_counter()
+            ecutil._encode_plan_parts(codec, sinfo, arrs[i % len(arrs)],
+                                      n_stripes)
+            t1 = time.perf_counter()
+            g = service._Group(mbits=mat, w=w, out_rows=m, kind=kind,
+                               requests=[service._Request(p[2], Future(), t1)
+                                         for p in plans])
+            with probe._on_device():
+                t2 = time.perf_counter()
+                widths, batch, nbytes = probe._stage(g)
+                t3 = time.perf_counter()
+                host = probe._to_host(torch.zeros((m, batch.shape[1]),
+                                                  dtype=torch.uint8,
+                                                  device=batch.device))
+            sync(device)
+            t4 = time.perf_counter()
+            probe._complete_packedbit(g, (widths, host, nbytes))
+            t5 = time.perf_counter()
+            if i == 0:
+                first_stage_ms = (t3 - t2) * 1e3
+                continue
+            for key, (a, b) in zip(parts, ((t0, t1), (t2, t3), (t4, t5))):
+                parts[key].append((b - a) * 1e3)
+    finally:
+        probe.close()
+    return {"objects_per_round": per_round,
+            "round_bytes": per_round * OBJECT_SIZE,
+            **{k: statistics.median(v) for k, v in parts.items()},
+            "stage_first_ms": first_stage_ms}
 
 
 def phase_queue_lanes(device, q, codec, sinfo, obj, shards, emit) -> None:

@@ -268,21 +268,18 @@ def test_submission_checks(queues):
 
 
 def test_queue_runs_on_cuda_unless_told_cpu(monkeypatch):
-    """No device argument means CUDA, which raises without a card; a mesh
-    is refused until it is ported."""
+    """No device argument means CUDA, which raises without a card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for asked in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             BatchingQueue(device=asked)
-    with pytest.raises(ValueError, match="mesh"):
-        BatchingQueue(device="cpu", mesh=object())
 
 
 def test_reads_the_references_environment(monkeypatch, queues):
     monkeypatch.setenv("CEPH_TPU_BATCH_DELAY", "0.25")
     monkeypatch.setenv("CEPH_TPU_DISPATCH_TIMEOUT", "7")
     monkeypatch.setenv("CEPH_TPU_INJECT_DISPATCH_DELAY", "0.5")
-    q = queues(use_pallas=True, mesh=False)
+    q = queues()
     assert (q.max_delay, q.dispatch_timeout, q.inject_dispatch_delay) == (
         0.25, 7.0, 0.5)
     assert queues(max_delay=0.125).max_delay == 0.125  # an argument wins
@@ -367,15 +364,20 @@ def test_slow_dispatch_trips_the_watchdog(queues):
     mb = lane_matrix("packed", 8)
     d = lane_inputs("packed", 8, seed=3)[0]
     want = ref._cpu_apply_request("packed", mb, d, 8, M)
-    q = queues(max_delay=0.001)
+    # flushed on this thread, so the breaker has tripped when flush returns
+    q = queues(max_delay=60.0)
     q.dispatch_timeout = 0.05
     q.inject_dispatch_delay = 0.12
-    assert np.array_equal(q.submit(mb, d, 8, M).result(timeout=TIMEOUT), want)
+    f = q.submit(mb, d, 8, M)
+    q.flush()
+    assert np.array_equal(f.result(timeout=TIMEOUT), want)
     assert q.perf.get("breaker_trip") == 1
     q.inject_dispatch_delay = 0.0
     with q._breaker_lock:
         q._breakers["packed"].open_until = time.monotonic() + 60
-    _eio(q.submit(mb, d, 8, M))
+    f = q.submit(mb, d, 8, M)
+    q.flush()
+    _eio(f)
     # a straggler's success is no probe: the breaker stays open
     q._breaker_success("packed")
     assert q.open_lanes() == ["packed"]
@@ -457,19 +459,29 @@ def test_timeline_on_the_admin_socket(queues):
     assert recs[0]["bytes"] == K * sum(WIDTHS)
 
 
-def test_pinned_pool_reuses_the_smallest_fitting_buffer(monkeypatch):
-    """Buffers of several sizes: a request takes the smallest idle one that
-    fits, a miss allocates a power of two, and at most `keep` idle buffers
-    stay.  (Pinned memory needs a card; here the allocation is plain.)"""
-    monkeypatch.setattr(service._PinnedPool, "_alloc", staticmethod(
-        lambda size: torch.empty(size, dtype=torch.uint8)))
-    pool = service._PinnedPool(keep=3)
-    big, small = pool.take(16 << 20), pool.take(3 << 20)
-    assert (big.numel(), small.numel(), pool.allocated) == (16 << 20, 4 << 20, 2)
-    assert pool.take(100).numel() == pool.MIN_BYTES
-    pool.give([big, small])
-    assert pool.take(2 << 20) is small  # the smallest that fits
-    assert pool.take(5 << 20) is big
-    assert pool.allocated == 3
-    pool.give([big, small, pool.take(1), pool.take(1 << 30)])
-    assert len(pool._free) == 3
+def test_finished_round_is_fanned_out_before_the_next_is_cut(queues):
+    """A round held in flight because more work is queued is completed as
+    soon as the device has finished it, not when the next round is cut: here
+    the next round waits for a flush, and the first resolves before it."""
+    mb = lane_matrix("packed", 8)
+    rng = np.random.default_rng(23)
+    first = rng.integers(0, 256, (K, 2048), dtype=np.uint8)
+    q = queues(max_pending_bytes=first.nbytes, max_delay=60.0)
+    late = []
+
+    def inject_backlog():
+        # below the bytes threshold and inside the window: not yet due
+        q._launch_hook = None
+        d = rng.integers(0, 256, (K, 1024), dtype=np.uint8)
+        late.append((d, q.submit(mb, d, 8, M)))
+
+    q._launch_hook = inject_backlog
+    out = q.submit(mb, first, 8, M).result(timeout=TIMEOUT)
+    assert np.array_equal(out, ref._cpu_apply_request("packed", mb, first, 8, M))
+    d1, f1 = late[0]
+    assert not f1.done() and q.dispatches == 1
+    assert q.overlapped_rounds == 0
+    q.flush()
+    assert np.array_equal(f1.result(timeout=TIMEOUT),
+                          ref._cpu_apply_request("packed", mb, d1, 8, M))
+    assert q.perf.get("flush_bytes") == q.perf.get("flush_forced") == 1
