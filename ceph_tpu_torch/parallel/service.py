@@ -1,10 +1,10 @@
 """Stripe-batching dispatch queue: many small EC requests, one kernel launch
 a round.
 
-Copy of ceph_tpu/parallel/service.py:72-1191 at commit 645aba9 (the
-BatchingQueue, its lanes, breaker and counters), on PyTorch.  Not copied:
-PlanarShardStore (it waits for the port's residency modules) and the host
-GF(2) mirrors, because the port has no CPU route (below).
+Copy of ceph_tpu/parallel/service.py:72-1531 at commit 645aba9 (the
+BatchingQueue, its lanes, breaker and counters, and PlanarShardStore, the
+monolithic resident store), on PyTorch.  Not copied: the host GF(2)
+mirrors, because the port has no CPU route (below).
 
 The queue aggregates encode/decode requests from many objects and ops,
 concatenates them column-wise into one [rows, sum(B)] buffer per (matrix,
@@ -97,9 +97,11 @@ import torch
 
 from ceph_tpu_torch.common.perf_counters import PerfCounters, PerfCountersBuilder
 from ceph_tpu_torch.ec.interface import ErasureCodeError
-from ceph_tpu_torch.ops.gf2 import (bitmatrix_to_tensor, gf2_apply_bytes,
+from ceph_tpu_torch.ops.gf2 import (bitmatrix_to_tensor, from_packedbit,
+                                    from_planar, gf2_apply_bytes,
                                     gf2_apply_packedbit, gf2_encode_packedbit_resident,
-                                    gf2_encode_resident, gf2_matmul, gf2_xor_packed)
+                                    gf2_encode_resident, gf2_matmul, gf2_xor_packed,
+                                    to_packedbit, to_planar)
 from ceph_tpu_torch.utils.cudadev import DeviceLike, resolve_device
 
 #: the six dispatch lanes, in promotion order (int8 trio, packed-bit trio)
@@ -1031,3 +1033,290 @@ class BatchingQueue:
         for width, req in zip(widths, g.requests):
             self._resolve(req, out[:, off:off + width])
             off += width
+
+
+class PlanarShardStore:
+    """Device-resident planar shard cache: one tensor per resident.
+
+    Copy of ceph_tpu/parallel/service.py:1194-1531 at commit 645aba9.  Rows
+    of packed uint8 shard bytes are admitted ONCE (one conversion on the
+    device) and then live there as packed-bit plane words (int32, w=8, K5)
+    or int8 bit-planes (any w); every later EC op on them (decode, scrub
+    re-encode, recovery) is a GF(2) product chaining device buffers (K3 on
+    words, K2 on planes), and bytes are packed back exactly once, when they
+    leave for the wire or the store (K6 on words).
+
+    Capacity is a hard byte budget over the device footprint: the
+    least-recently-used entries are evicted, so the store degrades to the
+    packed path, never to an out-of-memory error.  Thread-safe.  The store
+    runs on `device` (the card unless the caller names the CPU); with a
+    `queue`, ``apply`` rides its plane lanes and coalesces across objects.
+    """
+
+    def __init__(self, capacity_bytes: int = 256 << 20,
+                 queue: Optional[BatchingQueue] = None,
+                 device: DeviceLike = None):
+        self.capacity_bytes = capacity_bytes
+        self.queue = queue
+        self.device = resolve_device(device)
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[Any, Any]" = OrderedDict()
+        self._bytes: Dict[Any, int] = {}
+        self._trim: Dict[Any, int] = {}  # packedbit admits: true width
+        # exit-boundary memo: key -> (version, packed host result).  Lives
+        # and dies WITH the entry, so a memo can never outlive or contradict
+        # its resident; host memory, capped at capacity_bytes
+        self._memo: Dict[Any, Tuple[Any, Any]] = {}
+        self.memo_bytes = 0
+        self.resident_bytes = 0
+        self.admits = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.perf = (
+            PerfCountersBuilder("planar_store")
+            .add_u64_counter("admit", "packed rows admitted (one unpack)")
+            .add_u64_counter("hit", "resident lookups served")
+            .add_u64_counter("miss", "lookups that fell to the packed path")
+            .add_u64_counter("evict", "LRU evictions under the byte budget")
+            .add_u64("resident_bytes", "planar device footprint (gauge)")
+            .add_u64("entries", "resident objects (gauge)")
+            .add_u64("memo_bytes",
+                     "exit-boundary packed memo host footprint (gauge)")
+            .add_time_avg("pack_s",
+                          "device->host pack seconds at the exit boundary")
+            .add_time_avg("unpack_s",
+                          "host->device unpack seconds at admission")
+            .create_perf_counters())
+        self.perf.resync = self._resync_gauges
+
+    def _resync_gauges(self) -> None:
+        # gauges are written under the store lock everywhere: an unlocked
+        # write could overwrite a newer value with a stale one
+        with self._lock:
+            self.perf.set("resident_bytes", self.resident_bytes)
+            self.perf.set("entries", len(self._entries))
+            self.perf.set("memo_bytes", self.memo_bytes)
+
+    # -- host boundary (conversions paid here, once) -------------------------
+
+    def admit(self, key: Any, rows: np.ndarray, w: int = 8,
+              meta: Any = None, layout: str = "planes") -> torch.Tensor:
+        """Convert packed [n, B] uint8 rows on the device and keep them
+        resident under `key`; returns the resident tensor.  layout="planes"
+        stores int8 bit-planes (any w); "packedbit" stores int32 plane words
+        (w=8 only, 1/8th the footprint), trimmed back to B on read."""
+        with self.perf.time_avg("unpack_s"):
+            data = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
+            if layout == "packedbit":
+                if w != 8:
+                    raise ValueError("packed-bit residency is the w=8 byte "
+                                     f"layout, got w={w}")
+                bits = to_packedbit(data)
+                self.put_planar(key, bits, w=w, n_rows=rows.shape[0],
+                                meta=meta, trim=rows.shape[1])
+            else:
+                bits = to_planar(data, w)
+                self.put_planar(key, bits, w=w, n_rows=rows.shape[0],
+                                meta=meta)
+        self.admits += 1
+        self.perf.inc("admit")
+        return bits
+
+    def read(self, key: Any) -> Optional[np.ndarray]:
+        """The resident rows packed back to [n, B] uint8 host bytes: the
+        EXIT boundary.  None when not resident.  The dtype tells the layouts
+        apart (int32 words, int8 planes)."""
+        got = self.get_planar(key)
+        if got is None:
+            return None
+        bits, w, n_rows, _meta = got
+        with self.perf.time_avg("pack_s"):
+            if bits.dtype == torch.int32:
+                out = from_packedbit(bits, n_rows)
+                with self._lock:
+                    trim = self._trim.get(key)
+                if trim is not None:
+                    out = out[:, :trim]
+            else:
+                out = from_planar(bits, w, n_rows)
+            return out.cpu().numpy()
+
+    # -- resident side (no conversion anywhere below) ------------------------
+
+    def put_planar(self, key: Any, bits: torch.Tensor, w: int = 8,
+                   n_rows: Optional[int] = None, meta: Any = None,
+                   trim: Optional[int] = None) -> None:
+        """`meta` is caller state carried with the entry (the OSD stores
+        the object version there, so a read can reject a stale resident).
+        `trim` is the true byte width of a packed-bit admit, installed under
+        the same lock as the entry."""
+        if n_rows is None:
+            n_rows = bits.shape[0] // w
+        nbytes = bits.numel() * bits.element_size()
+        with self._lock:
+            if key in self._entries:
+                self.resident_bytes -= self._bytes[key]
+            self._entries[key] = (bits, w, n_rows, meta)
+            self._entries.move_to_end(key)
+            self._bytes[key] = nbytes
+            self._memo_discard(key)  # new rows: the stale memo dies
+            if trim is None:
+                self._trim.pop(key, None)  # a re-put resets the trim
+            else:
+                self._trim[key] = trim
+            self.resident_bytes += nbytes
+            evicted = 0
+            while self.resident_bytes > self.capacity_bytes and self._entries:
+                old_key, _ = self._entries.popitem(last=False)
+                self.resident_bytes -= self._bytes.pop(old_key)
+                self._trim.pop(old_key, None)
+                self._memo_discard(old_key)
+                self.evictions += 1
+                evicted += 1
+            self.perf.set("resident_bytes", self.resident_bytes)
+            self.perf.set("entries", len(self._entries))
+        if evicted:
+            self.perf.inc("evict", evicted)
+
+    def get_planar(self, key: Any):
+        """(bits, w, n_rows, meta) or None; refreshes LRU position."""
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is None:
+                self.misses += 1
+            else:
+                self._entries.move_to_end(key)
+                self.hits += 1
+        self.perf.inc("hit" if ent is not None else "miss")
+        return ent
+
+    # -- the residency protocol shared with PagedResidentStore ---------------
+    # (ceph_tpu_torch/rados/pagestore.py): ecutil's planar_* helpers speak
+    # these shapes, so either store can sit behind the cache tier.
+
+    def touch(self, key: Any):
+        """(w, n_rows, meta) with LRU refresh and hit/miss counting."""
+        ent = self.get_planar(key)
+        return None if ent is None else (ent[1], ent[2], ent[3])
+
+    def entry_info(self, key: Any):
+        """(w, n_rows, meta) without LRU or counter side effects."""
+        with self._lock:
+            ent = self._entries.get(key)
+        return None if ent is None else (ent[1], ent[2], ent[3])
+
+    def resident_meta(self, key: Any):
+        """The entry's caller meta, or None: the policy probe shape."""
+        info = self.entry_info(key)
+        return None if info is None else info[2]
+
+    def gather_rows(self, key: Any, r0: int, r1: int):
+        """The resident's bit-rows [r0, r1) (a view of its tensor), or
+        None.  No LRU side effects."""
+        with self._lock:
+            ent = self._entries.get(key)
+        if ent is None or r1 > ent[0].shape[0]:
+            return None
+        return ent[0][r0:r1]
+
+    def apply(self, key: Any, mbits: np.ndarray, out_rows: int,
+              out_key: Any = None) -> Optional[torch.Tensor]:
+        """Apply a bit-matrix to the resident rows (encode with a generator,
+        reconstruct with an inverted signature matrix, scrub re-encode):
+        the XOR schedule (K3) on plane words, gf2_matmul (K2) on int8
+        planes.  The result stays on the device, stored under `out_key`
+        when given.  None when `key` is not resident.  Routes through the
+        batching queue when one is attached (cross-object coalescing)."""
+        got = self.get_planar(key)
+        if got is None:
+            return None
+        bits, w, _, _meta = got
+        if bits.dtype == torch.int32:
+            mb = np.asarray(mbits, dtype=np.uint8)
+            if self.queue is not None:
+                out = self.queue.submit_packedbit_planes(
+                    mb, bits, w, out_rows).result()
+            else:
+                out = gf2_xor_packed(mb, bits)
+        elif self.queue is not None:
+            out = self.queue.submit_planar(
+                np.asarray(mbits), bits, w, out_rows).result()
+        else:
+            out = gf2_matmul(bitmatrix_to_tensor(mbits, self.device), bits)
+        if out_key is not None:
+            self.put_planar(out_key, out, w=w, n_rows=out_rows)
+        return out
+
+    def drop(self, key: Any, force: bool = False) -> bool:
+        """Remove `key` if resident; True when an entry was dropped.
+        Dropping an absent key is a supported no-op.  ``force`` is the
+        paged store's dirty override, a no-op here, where nothing is ever
+        dirty; taken so that callers speak one surface."""
+        with self._lock:
+            dropped = key in self._entries
+            if dropped:
+                del self._entries[key]
+                self.resident_bytes -= self._bytes.pop(key)
+                self._trim.pop(key, None)
+            self._memo_discard(key)
+            self.perf.set("resident_bytes", self.resident_bytes)
+            self.perf.set("entries", len(self._entries))
+        return dropped
+
+    def peek(self, key: Any):
+        """(bits, w, n_rows, meta) or None without touching LRU order or
+        the hit/miss counters."""
+        with self._lock:
+            return self._entries.get(key)
+
+    def entries_snapshot(self) -> List[Tuple[Any, int]]:
+        """(key, device nbytes) pairs in LRU order, oldest first: the tier
+        agent's eviction-candidate input."""
+        with self._lock:
+            return [(k, self._bytes[k]) for k in self._entries]
+
+    def _memo_discard(self, key: Any) -> None:
+        """Drop a key's memo and its byte accounting (lock held)."""
+        got = self._memo.pop(key, None)
+        if got is not None:
+            self.memo_bytes -= len(got[1])
+
+    def memo_get(self, key: Any, version: Any):
+        """The exit-boundary memo for `key` at `version`, or None; only
+        while the entry is resident."""
+        with self._lock:
+            if key not in self._entries:
+                return None
+            got = self._memo.get(key)
+        if got is None or got[0] != version:
+            return None
+        return got[1]
+
+    def memo_put(self, key: Any, version: Any, value: Any) -> None:
+        """Record the packed host result of this resident at `version`, so
+        that later resident hits skip the device pack.  Ignored when the
+        entry is not resident or the memo is at its budget
+        (capacity_bytes)."""
+        nbytes = len(value)
+        with self._lock:
+            if key not in self._entries:
+                return
+            self._memo_discard(key)
+            if self.memo_bytes + nbytes > self.capacity_bytes:
+                self.perf.set("memo_bytes", self.memo_bytes)
+                return
+            self._memo[key] = (version, value)
+            self.memo_bytes += nbytes
+            self.perf.set("memo_bytes", self.memo_bytes)
+
+    def __contains__(self, key: Any) -> bool:
+        with self._lock:
+            return key in self._entries
+
+    def stats(self) -> Dict[str, int]:
+        return {"resident_bytes": self.resident_bytes,
+                "memo_bytes": self.memo_bytes,
+                "entries": len(self._entries), "admits": self.admits,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions}

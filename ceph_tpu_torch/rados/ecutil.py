@@ -1,9 +1,8 @@
 """EC stripe math and the queue encode/decode plans (reference
 src/osd/ECUtil.{h,cc}).
 
-Copy of ceph_tpu/rados/ecutil.py:33-530 at commit 645aba9, on the port's
-modules, without ``HashInfo`` (it needs a native crc32c) and the residency
-helpers (they wait for the port's PlanarShardStore).
+Copy of ceph_tpu/rados/ecutil.py:33-715 at commit 645aba9, on the port's
+modules, without ``HashInfo`` (it needs a native crc32c).
 
 `StripeInfo` is the reference's ``ECUtil::stripe_info_t`` (ECUtil.h:27-80):
 an object is logically striped in ``stripe_width = k * chunk_size`` units;
@@ -20,6 +19,11 @@ picks and inverts the decode matrix on the host, the device applies it to
 the missing data rows only.  Without a queue, or for codecs the plans do
 not take (packet layout, chunk remaps, sub-chunk codecs), both use the
 codec's own calls.
+
+The residency helpers at the end (`planar_encode_async`, `planar_rows`,
+`planar_shard_bytes`, `planar_object_bytes`) leave an object's shard rows
+resident on the device after a write, in a PlanarShardStore or a
+PagedResidentStore, and serve reads and recovery rows from them.
 """
 
 from __future__ import annotations
@@ -28,10 +32,14 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ceph_tpu_torch.ec.matrices import matrix_to_bitmatrix
-from ceph_tpu_torch.ops.gf2 import packedbit_enabled
+from ceph_tpu_torch.ops.gf2 import (bitmatrix_to_tensor, from_packedbit,
+                                    from_planar, gf2_encode_packedbit_resident,
+                                    gf2_encode_resident, packedbit_enabled)
 from ceph_tpu_torch.rados.messenger import BufferList
+from ceph_tpu_torch.utils.cudadev import DeviceLike, resolve_device
 
 
 @dataclass(frozen=True)
@@ -449,3 +457,167 @@ async def decode_object_async(codec, sinfo: StripeInfo,
             return finish(await asyncio.wrap_future(fut))
     return decode_object(codec, sinfo, blobs, object_size, queue=None,
                          scatter=scatter)
+
+
+# -- residency (PlanarShardStore, PagedResidentStore) ------------------------
+#
+# Shards stay on the device across encode -> decode -> recovery, and the
+# conversion to and from bytes is paid once, when they enter or leave the
+# device tier.  Byte-layout, unmapped, concat-safe codecs only: the same
+# eligibility as the queue encode plan.  For w=8 codecs the resident layout
+# is packed-bit plane words (int32 carrying the reference's uint32 bits, 1
+# device byte per data byte); w=16 and w=4 pools keep int8 planes.  The
+# helpers tell the layouts apart by the resident's dtype.
+
+
+def planar_eligible(codec) -> bool:
+    return (getattr(codec, "bit_layout", "byte") == "byte"
+            and not codec.get_chunk_mapping()
+            and concat_safe(codec)
+            and codec.bit_generator() is not None)
+
+
+async def planar_encode_async(codec, sinfo: StripeInfo, data: bytes,
+                              queue=None, span=None,
+                              device: DeviceLike = None):
+    """Encode with residency: the data rows ride the queue's RESIDENT lanes
+    (packedbit_resident, K4, for w=8; resident, K2, for w=16 and w=4), one
+    batched device call shared with every concurrent op, and come back as
+    (packed parity for persistence, data and parity rows to keep
+    resident).  Returns (blobs, all_bits, n_rows, n_cols, w): blobs is the
+    per-shard host list (as batched_encode), all_bits a tensor on the
+    device; w MUST be recorded with the resident.  None when the codec is
+    not planar-eligible.  Without a queue the lane function runs on
+    `device` (the card unless the caller names the CPU), at the object's
+    own width: the port's kernels take any B, so nothing is padded."""
+    if not planar_eligible(codec):
+        return None
+    padded = sinfo.pad_to_stripe(data)
+    if not len(padded):
+        return None
+    import asyncio
+
+    k = codec.get_data_chunk_count()
+    n = codec.get_chunk_count()
+    m = n - k
+    w = getattr(codec, "w", 8)
+    n_stripes = max(1, len(padded) // sinfo.stripe_width)
+    flat = np.ascontiguousarray(
+        np.frombuffer(padded, dtype=np.uint8)
+        .reshape(n_stripes, k, sinfo.chunk_size)
+        .transpose(1, 0, 2).reshape(k, n_stripes * sinfo.chunk_size))
+    L = flat.shape[1]
+    # the packed-bit lane's residents are whole words a plane row (w=8
+    # byte codecs guarantee it: chunk_size is a multiple of w*4=32)
+    packedbit = _packedbit_route(codec) and L % 32 == 0
+    mbits = np.asarray(codec.bit_generator()).astype(
+        np.uint8 if packedbit else np.int8)
+    if queue is not None:
+        submit = (queue.submit_packedbit_resident if packedbit
+                  else queue.submit_resident)
+        parity, all_bits = await asyncio.wrap_future(
+            submit(mbits, flat, w, m, span=span))
+    else:
+        dev = resolve_device(device)
+        rows = torch.from_numpy(flat).to(dev)
+        if packedbit:
+            parity, all_bits = gf2_encode_packedbit_resident(mbits, rows)
+        else:
+            parity, all_bits = gf2_encode_resident(
+                bitmatrix_to_tensor(mbits, dev), rows, w, m)
+        parity = parity.cpu().numpy()
+    blobs = [flat[i] for i in range(k)] + [parity[j] for j in range(m)]
+    return blobs, all_bits, n, L, w
+
+
+# the function that brings gathered slab bytes to the host in this module
+SLAB_IO_BOUNDARY = ("_pack_rows",)
+
+
+def _pack_rows(bits, w: int, n_rows: int, L: int, store) -> np.ndarray:
+    """Resident bit-rows -> packed [n_rows, L] uint8 on the host: the one
+    exit boundary, shared by every planar_* helper.  The conversion runs on
+    the store's device (K6 on int32 words, from_planar on int8 planes;
+    host-arm rows cross to it first), then the ONE device->host copy,
+    counted on a paged store (``d2h_gathers``)."""
+    if not isinstance(bits, torch.Tensor):
+        a = np.ascontiguousarray(bits)
+        bits = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                else a).to(store.device)
+    if bits.dtype == torch.int32:
+        out = from_packedbit(bits, n_rows)
+    else:
+        out = from_planar(bits, w, n_rows)
+    out = out[:, :L].cpu().numpy()
+    note = getattr(store, "note_d2h", None)
+    if note is not None:
+        note()
+    return out
+
+
+def planar_rows(store, key, version) -> Optional[List[np.ndarray]]:
+    """All n shard rows packed from the resident under `key`, or None when
+    absent, at another version, or PARTIAL (a paged resident whose parity
+    pages were shed serves object reads but not whole-stripe re-encodes).
+    One pack serves recovery and repair re-encodes with no product at all:
+    the resident IS the encoded object."""
+    got = store.touch(key)
+    if got is None:
+        return None
+    w, n_rows, meta = got
+    if not meta or meta[0] != version:
+        return None
+    bits = store.gather_rows(key, 0, n_rows * w)
+    if bits is None:
+        return None
+    rows = _pack_rows(bits, w, n_rows, meta[1], store)
+    return [rows[i] for i in range(n_rows)]
+
+
+def planar_shard_bytes(store, key, version, shard: int) -> Optional[bytes]:
+    """ONE shard's packed bytes from the resident's bit-rows: the writeback
+    flush and sub-read shape, exactly the blob the write-through path would
+    have stored."""
+    got = store.entry_info(key)
+    if got is None:
+        return None
+    w, _n_rows, meta = got
+    if not meta or meta[0] != version:
+        return None
+    bits = store.gather_rows(key, shard * w, (shard + 1) * w)
+    if bits is None:
+        return None
+    return _pack_rows(bits, w, 1, meta[1], store).reshape(-1).tobytes()
+
+
+def planar_object_bytes(store, key, version, k: int, cs: int,
+                        object_size: int) -> Optional[bytes]:
+    """The logical object bytes packed from the resident's DATA rows (a
+    read with zero shard reads and no decode), or None when absent or
+    stale.  The result is memoized in the store's exit-boundary memo (it
+    dies with the entry or on a version change), so a resident read many
+    times pays the pack once.  Served through touch/gather_rows, so a paged
+    resident whose parity pages were shed still answers from its data-row
+    prefix."""
+    got = store.touch(key)
+    if got is None:
+        return None
+    w, _n_rows, meta = got
+    if not meta or meta[0] != version:
+        return None
+    memo_get = getattr(store, "memo_get", None)
+    if memo_get is not None:
+        cached = memo_get(key, version)
+        if cached is not None:
+            return cached
+    data_bits = store.gather_rows(key, 0, k * w)
+    if data_bits is None:
+        return None
+    L = meta[1]
+    rows = _pack_rows(data_bits, w, k, L, store)
+    n_stripes = max(1, L // cs)
+    out = rows.reshape(k, n_stripes, cs).transpose(1, 0, 2)
+    result = out.reshape(-1)[:object_size].tobytes()
+    if memo_get is not None:
+        store.memo_put(key, version, result)
+    return result

@@ -81,19 +81,47 @@ Phases; any failure exits nonzero before the result line is printed:
                host allocations the window made (cudaHostAlloc calls).
             K1-K4 must each launch in the run.  Each line is "queue {...}"
             with the card's name and power limit.
-5. split    host prepare / host->device / kernel call (apply_packedbit,
+5. store    device residency, the OSD's resident write and read path, at
+            the OSD's layout and shared_planar_store's defaults (a 256 MiB
+            PagedResidentStore of 64 KiB pages on CUDA sub-slabs; a 4 MiB
+            object is 88 pages, so 46 fit), one BatchingQueue with the 50 ms
+            window, every launch count set to 0 just before and read just
+            after (the "store" run):
+            a. 64 writes through ecutil.planar_encode_async, each product
+               installed with the OSD's put_planar call, in turns with
+               batched_encode_async (resident, batched, batched, resident);
+               every shard list against the CPU plugin=jerasure; every
+               install device-native, 18 evictions;
+            b. planar_object_bytes of every object (the 46 residents equal
+               their objects, the evicted ones None; a second read from the
+               memo), planar_rows and planar_shard_bytes, a resident read
+               (memo cleared) in turns with a degraded read through the
+               queue, and object reads after shed_parity;
+            c. a PlanarShardStore: chunks 1, 5, 9 rebuilt from the resident
+               planes by apply (K3), and admit (K5) then read (K6);
+            d. four w=16 objects through the int8-plane resident lane (K2)
+               into a paged store, gathered as int8 planes;
+            e. writes installed from a side stream while reads gather in one
+               event loop.
+            K2-K6 must each launch.  Then slab_install of 88 pages and
+            slab_gather of 64, against a CPU sub-slab, timed beside a copy
+            of the same bytes (K5 and K6 at the store's shapes are timed in
+            phase 2).  Each line is "store {...}" with the card's name and
+            power limit.
+6. split    host prepare / host->device / kernel call (apply_packedbit,
             the lane's one launch) / device->host of one 4 MiB encode (the
             codec API takes host bytes), and the device's busy share over
             back-to-back encodes from torch.profiler.
-6. report   the card, one {"kernels": [...]} line (each row's "launches" is
-            the sum of its counts in phases 3 and 4, "launches_by_run" the
-            four runs), and the result line.
+7. report   the card, one {"kernels": [...]} line (each row's "launches" is
+            the sum of its counts in phases 3, 4 and 5, "launches_by_run" the
+            five runs), and the result line.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import io
 import json
 import os
@@ -273,7 +301,7 @@ def resident_decode_bitmatrix(bm: np.ndarray, chosen, n_chunks: int = 11):
     return out
 
 
-def phase_kernels(device):
+def phase_kernels(device, card):
     """Each kernel against its plain version; returns the rows for the
     report (main-path shape) and prints one line per compared shape."""
     import torch
@@ -327,7 +355,7 @@ def phase_kernels(device):
                     "ms_turns": times[r], "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": library_ms}
-            print("kernel " + json.dumps(line))
+            print("kernel " + json.dumps({**line, "card": card}))
             if report:
                 rows[name if r == order[0] else name + ".popc"] = dict(line)
         if turns:
@@ -336,7 +364,8 @@ def phase_kernels(device):
             dst = torch.empty_like(src)
             print("floor " + json.dumps({
                 "kernel": name, "shape": label, "copy_bytes": n,
-                "ms": time_ms(lambda: dst.copy_(src), TIMING_REPS)}))
+                "ms": time_ms(lambda: dst.copy_(src), TIMING_REPS),
+                "card": card}))
             del src, dst
         sync(device)
 
@@ -395,11 +424,11 @@ def phase_kernels(device):
                        device)
         k2(M, flat[offset:].view(C, B),
            f"int8 [{R},{C}]x[{C},{B}]" + (f" base+{offset}" if offset else ""))
-    phase_packedbit(device, bms, rng, rows)
+    phase_packedbit(device, bms, rng, rows, card)
     return rows
 
 
-def phase_packedbit(device, bms, rng, rows) -> None:
+def phase_packedbit(device, bms, rng, rows, card) -> None:
     """K3-K6 against their plain versions, byte for byte; the main-path
     shapes and 2 MiB of columns timed, with floors, K4 in turns with K1."""
     import torch
@@ -442,7 +471,7 @@ def phase_packedbit(device, bms, rng, rows) -> None:
             line.update(ms=time_ms(fn, TIMING_REPS),
                         plain_ms=time_ms(plain, PLAIN_REPS), bound_ms=b_ms,
                         bound_by=b_by, library_ms=None)
-        print("kernel " + json.dumps(line))
+        print("kernel " + json.dumps({**line, "card": card}))
         if report:
             rows[name] = line
         if floor:
@@ -451,7 +480,8 @@ def phase_packedbit(device, bms, rng, rows) -> None:
             dst = torch.empty_like(src)
             print("floor " + json.dumps({
                 "kernel": name, "shape": label, "copy_bytes": n,
-                "ms": time_ms(lambda: dst.copy_(src), TIMING_REPS)}))
+                "ms": time_ms(lambda: dst.copy_(src), TIMING_REPS),
+                "card": card}))
             del src, dst
         return line
 
@@ -530,7 +560,8 @@ def phase_packedbit(device, bms, rng, rows) -> None:
               if name == "apply_packedbit"
               else (lambda: cuda_gf2.apply_bytes_w8(bm_enc, data)))
         turns[name].append(time_ms(fn, TIMING_REPS))
-    print("turns " + json.dumps({"shape": main["shape"], **turns}))
+    print("turns " + json.dumps({"shape": main["shape"], **turns,
+                                 "card": card}))
     rows["apply_packedbit"]["ms_turns"] = turns["apply_packedbit"]
     rows["apply_packedbit"]["apply_bytes_w8_ms_turns"] = turns["apply_bytes_w8"]
     k4("rs_encode", data, "", resident=True, timed=True)
@@ -556,13 +587,19 @@ def phase_packedbit(device, bms, rng, rows) -> None:
                 lambda: pb.from_packedbit_plain(planes, R8 // 8),
                 f"[{R8},{W}]{label}", R8 * W * 4 + R8 // 8 * W * 32, 0, **kw)
 
-    k5(rand(np.uint8, (8, main_cols)), "", timed=True, report=True, floor=True)
+    # the store's shapes first (an admit of an object's 11 chunks; a read
+    # of its 8 data chunks and of all 11), then the codec's and 2 MiB
+    k5(rand(np.uint8, (11, main_cols)), "", timed=True, report=True,
+       floor=True)
+    k5(rand(np.uint8, (8, main_cols)), "", timed=True, floor=True)
     k5(rand(np.uint8, (8, BATCH_COLS)), "", timed=True)
     for B in (1, 31, 1000):
         k5(rand(np.uint8, (8, B)), "")
     k5(rand(np.uint8, (8, 4096), offset=1), " base+1")
-    k6(rand(np.int32, (24, main_cols // 32)), "", timed=True, report=True,
+    k6(rand(np.int32, (64, main_cols // 32)), "", timed=True, report=True,
        floor=True)
+    k6(rand(np.int32, (88, main_cols // 32)), "", timed=True, floor=True)
+    k6(rand(np.int32, (24, main_cols // 32)), "", timed=True, floor=True)
     k6(rand(np.int32, (24, BATCH_COLS // 32)), "", timed=True)
     for W in (1, 31):
         k6(rand(np.int32, (24, W)), "")
@@ -1155,6 +1192,403 @@ def phase_queue_lanes(device, q, codec, sinfo, obj, shards, emit) -> None:
             os.environ["CEPH_TPU_PACKEDBIT"] = saved
 
 
+# ------------------------------------------------------------ phase store --
+
+# shared_planar_store's defaults: the OSD's resident budget and page size
+STORE_BYTES = 256 << 20
+STORE_PAGE = 64 << 10
+STORE_W16_OBJECTS = 4        # w=16 residents (int8 planes, K2)
+STORE_MIXED = 16             # writes and reads of the concurrent step
+
+
+def _forget_memo(store, keys=None) -> None:
+    """Empty the paged store's exit-boundary memo (of `keys`, or all), so
+    that the next object read gathers from the pages."""
+    with store._lock:
+        for key in list(store._memo) if keys is None else keys:
+            store._memo_discard(key)
+
+
+def lost_rows_bitmatrix(codec, lost):
+    """A [len(lost)*8, 88] bit-matrix over the planes of all 11 chunks that
+    rebuilds the `lost` chunks, data or parity, from the codec's chosen
+    survivors: a parity chunk's rows are its generator rows composed with
+    the decode matrix (bit-matrices compose as their GF(2^8) matrices)."""
+    from ceph_tpu_torch.ec.matrices import matrix_to_bitmatrix
+
+    chosen, inv = codec.decode_selection(set(lost), set(range(11)) - set(lost))
+    binv = matrix_to_bitmatrix(inv, 8).astype(np.int64)
+    gen = matrix_to_bitmatrix(codec.matrix, 8).astype(np.int64)
+    rows = [binv[c * 8:(c + 1) * 8] if c < 8
+            else gen[(c - 8) * 8:(c - 7) * 8] @ binv % 2 for c in lost]
+    return resident_decode_bitmatrix(np.vstack(rows).astype(np.uint8), chosen)
+
+
+def phase_store(device, card):
+    """Device residency, the OSD's resident write and read path, on the
+    card: ecutil's planar helpers, the paged store on CUDA sub-slabs and
+    PlanarShardStore, at the OSD's layout and shared_planar_store's
+    defaults.  Returns each kernel's launch count in this run; then times
+    the slab ops beside a copy of the same bytes (uncounted)."""
+    import asyncio
+
+    import torch
+
+    from ceph_tpu_torch.ops import cuda_packedbit
+    from ceph_tpu_torch.parallel.service import BatchingQueue, PlanarShardStore
+    from ceph_tpu_torch.rados import ecutil
+    from ceph_tpu_torch.rados.pagestore import PagedResidentStore
+
+    def emit(step, **numbers):
+        print("store " + json.dumps({"step": step, **numbers, "card": card}))
+
+    codec = _codec("cuda", device, technique="reed_sol_van", k=8, m=3)
+    cpu = _codec("jerasure", "cpu", technique="reed_sol_van", k=8, m=3)
+    sinfo = ecutil.StripeInfo(k=8, stripe_width=8 * STRIPE_UNIT)
+    k, cs, n = 8, STRIPE_UNIT, QUEUE_OBJECTS
+    rng = np.random.default_rng(SEED + 4)
+    objs = [rng.integers(0, 256, OBJECT_SIZE, dtype=np.uint8).tobytes()
+            for _ in range(n)]
+    k6 = cuda_packedbit.from_packedbit
+    q = BatchingQueue(device=device, max_delay=WIDE_WINDOW_S)
+    store = PagedResidentStore(STORE_BYTES, STORE_PAGE, queue=q, device=device)
+    check(store.device_arm, "the paged store is not on its device arm")
+    # 11 chunks x 8 planes x 16384 words: one page a plane row
+    obj_pages = 11 * 8 * (OBJECT_SIZE // k // 32) * 4 // STORE_PAGE
+    fit = store.pages_total // obj_pages
+
+    def install(key, product, target=None):
+        _, bits, n_rows, n_cols, w = product
+        return (target or store).put_planar(
+            key, bits, w=w, n_rows=n_rows, meta=(1, n_cols, OBJECT_SIZE),
+            trim=n_cols, data_rows=k * w)  # the OSD's call (osd.py:5320)
+
+    async def resident_writes(keys):
+        async def one(key, i):
+            product = await ecutil.planar_encode_async(codec, sinfo, objs[i],
+                                                       queue=q)
+            check(install(key, product), f"store refused object {key}")
+            return product[0]
+
+        return await asyncio.gather(*(one(key, i) for key, i in keys))
+
+    async def batched_writes():
+        return await asyncio.gather(*(ecutil.batched_encode_async(
+            codec, sinfo, o, queue=q) for o in objs))
+
+    _zero_counts()
+    try:
+        # 1. resident writes, in turns with batched queue writes
+        want, ms = None, {"resident": [], "batched": []}
+        for arm in ("resident", "batched", "batched", "resident"):
+            t0 = time.perf_counter()
+            got = asyncio.run(resident_writes([(i, i) for i in range(n)])
+                              if arm == "resident" else batched_writes())
+            ms[arm].append((time.perf_counter() - t0) * 1e3 / n)
+            if want is None:
+                want = got
+                for i in range(n):
+                    same = all(np.array_equal(a, b) for a, b in zip(
+                        got[i], ecutil.batched_encode(cpu, sinfo, objs[i])))
+                    check(len(got[i]) == 11 and same,
+                          f"resident write {i} differs from CPU jerasure")
+                d = store.perf.dump()
+                check(d["device_installs"] == n and d["h2d_installs"] == 0,
+                      f"installs: {d['device_installs']} device-native, "
+                      f"{d['h2d_installs']} from the host, of {n}")
+                check(d["evict"] == n - fit and d["entries"] == fit
+                      and d["pages_used"] == fit * obj_pages,
+                      f"residency: {d['evict']} evictions, {d['entries']} "
+                      f"entries, {d['pages_used']} pages for {n} objects of "
+                      f"{obj_pages} pages in {store.pages_total}")
+            else:
+                check(all(all(np.array_equal(a, b) for a, b in zip(x, y))
+                          for x, y in zip(got, want)),
+                      f"{arm} writes differ from the first turn")
+        d = store.perf.dump()
+        check(d["device_installs"] == 2 * n and d["h2d_installs"] == 0,
+              "a queue product crossed from the host")
+        emit("writes", objects=n, object_bytes=OBJECT_SIZE,
+             pages_an_object=obj_pages, objects_that_fit=fit,
+             resident_write_ms_an_object_turns=ms["resident"],
+             batched_write_ms_an_object_turns=ms["batched"],
+             against_cpu_jerasure=n)
+        # the device's share of one profiled turn of resident writes
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            asyncio.run(resident_writes([(i, i) for i in range(n)]))
+            sync(device)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.lower()
+                kind = ("copy" if "memcpy" in name else "fill"
+                        if "memset" in name or "fill" in name else "kernel")
+                busy[kind].append((e.time_range.start, e.time_range.end))
+        check(busy["kernel"], "the profiler saw no kernel on the card")
+        busy_us = sum(b - a for a, b in _interval_union(
+            [iv for v in busy.values() for iv in v]))
+        emit("writes profiled", objects=n, wall_ms=wall_us / 1e3,
+             device_busy_ms=busy_us / 1e3, device_busy_share=busy_us / wall_us,
+             **{f"{kind}_ms": sum(b - a for a, b in v) / 1e3
+                for kind, v in busy.items()},
+             events={kind: len(v) for kind, v in busy.items()})
+
+        # 2. reads: resident objects from their pages, evicted ones None
+        resident = [i for i in range(n) if i in store]
+        check(len(resident) == fit, f"{len(resident)} residents, not {fit}")
+        _forget_memo(store)
+        launches0, d2h0 = k6.launches, store.d2h_gathers
+        for i in range(n):
+            got = ecutil.planar_object_bytes(store, i, 1, k, cs, OBJECT_SIZE)
+            check(got == (objs[i] if i in resident else None),
+                  f"resident read of object {i}")
+        gathers = store.d2h_gathers - d2h0
+        check(gathers == fit and k6.launches - launches0 >= fit,
+              f"{fit} resident reads made {gathers} gathers and "
+              f"{k6.launches - launches0} K6 launches")
+        launches0, d2h0 = k6.launches, store.d2h_gathers
+        for i in resident:
+            check(ecutil.planar_object_bytes(store, i, 1, k, cs, OBJECT_SIZE)
+                  == objs[i], f"memo read of object {i}")
+        check(store.d2h_gathers == d2h0 and k6.launches == launches0,
+              "a second read was not served from the memo")
+        for i in resident[:4]:
+            rows = ecutil.planar_rows(store, i, 1)
+            check(rows is not None and all(np.array_equal(a, b)
+                                           for a, b in zip(rows, want[i])),
+                  f"planar_rows of object {i}")
+        for i in resident[4:6]:
+            for shard in range(11):
+                check(ecutil.planar_shard_bytes(store, i, 1, shard)
+                      == np.asarray(want[i][shard]).tobytes(),
+                      f"planar_shard_bytes of object {i} shard {shard}")
+        ms = {"resident": [], "degraded": []}
+        blobs = {i: {c: s for c, s in enumerate(want[i]) if c not in LOST}
+                 for i in resident}
+
+        async def degraded():
+            return await asyncio.gather(*(ecutil.decode_object_async(
+                codec, sinfo, blobs[i], OBJECT_SIZE, queue=q)
+                for i in resident))
+
+        for arm in ("resident", "degraded", "degraded", "resident"):
+            _forget_memo(store)
+            t0 = time.perf_counter()
+            if arm == "resident":
+                got = [ecutil.planar_object_bytes(store, i, 1, k, cs,
+                                                  OBJECT_SIZE)
+                       for i in resident]
+            else:
+                got = asyncio.run(degraded())
+            ms[arm].append((time.perf_counter() - t0) * 1e3 / fit)
+            check(got == [objs[i] for i in resident], f"{arm} reads")
+        emit("read parts", **_read_parts(device, store, resident, k, cs))
+        for i in resident[-4:]:
+            _forget_memo(store, [i])
+            check(store.shed_parity(i) > 0, f"no parity shed from {i}")
+            check(ecutil.planar_rows(store, i, 1) is None,
+                  f"planar_rows served a shed resident {i}")
+            check(ecutil.planar_object_bytes(store, i, 1, k, cs, OBJECT_SIZE)
+                  == objs[i], f"read of object {i} after its parity shed")
+        emit("reads", resident=fit, evicted=n - fit,
+             resident_read_ms_an_object_turns=ms["resident"],
+             degraded_read_ms_an_object_turns=ms["degraded"],
+             lost=list(LOST), planar_rows=4, planar_shard_bytes=2,
+             parity_sheds=4)
+
+        # 3. resident decode (K3 through the queue) and admit (K5) / read
+        # (K6) on the monolithic store
+        pss = PlanarShardStore(STORE_BYTES, queue=q, device=device)
+        i = resident[0]
+        product = asyncio.run(ecutil.planar_encode_async(codec, sinfo,
+                                                         objs[i], queue=q))
+        _, bits, n_rows, n_cols, _ = product
+        damaged = bits.clone()
+        for c in LOST:
+            damaged[c * 8:(c + 1) * 8] = 0
+        pss.put_planar("object", damaged, w=8, n_rows=n_rows,
+                       meta=(1, n_cols, OBJECT_SIZE))
+        x0 = cuda_packedbit.xor_schedule.launches
+        pss.apply("object", lost_rows_bitmatrix(codec, LOST), len(LOST),
+                  out_key="rebuilt")
+        check(cuda_packedbit.xor_schedule.launches > x0,
+              "the resident decode did not run K3")
+        rebuilt = pss.read("rebuilt")
+        for j, c in enumerate(LOST):
+            check(np.array_equal(rebuilt[j, :n_cols], want[i][c]),
+                  f"resident decode rebuilt chunk {c} wrong")
+        rows = np.stack(want[i])
+        k5 = cuda_packedbit.to_packedbit.launches
+        pss.admit("admitted", rows, layout="packedbit")
+        check(cuda_packedbit.to_packedbit.launches == k5 + 1,
+              "admit did not run K5 once")
+        check(np.array_equal(pss.read("admitted"), rows),
+              "admit then read differs")
+        emit("planar store", rebuilt=list(LOST), admitted=list(rows.shape),
+             **pss.stats())
+        del pss, bits, damaged, product
+
+        # 4. w=16: int8 planes through the resident lane (K2)
+        codec16 = _codec("cuda", device, technique="reed_sol_van", k=8, m=3,
+                         w=16)
+        cpu16 = _codec("jerasure", "cpu", technique="reed_sol_van", k=8, m=3,
+                       w=16)
+        store16 = PagedResidentStore(STORE_BYTES, STORE_PAGE, queue=q,
+                                     device=device)
+        r0 = q.perf.get("submit_resident")
+
+        async def writes16():
+            return await asyncio.gather(*(ecutil.planar_encode_async(
+                codec16, sinfo, objs[j], queue=q)
+                for j in range(STORE_W16_OBJECTS)))
+
+        for j, product in enumerate(asyncio.run(writes16())):
+            check(product[4] == 16 and product[1].dtype == torch.int8,
+                  f"w=16 resident {j}: w {product[4]}, {product[1].dtype}")
+            check(all(np.array_equal(a, b) for a, b in zip(
+                product[0], ecutil.batched_encode(cpu16, sinfo, objs[j]))),
+                f"w=16 write {j} differs from CPU jerasure")
+            check(install(j, product, store16), f"w=16 resident {j} refused")
+        check(q.perf.get("submit_resident") == r0 + STORE_W16_OBJECTS,
+              "the w=16 writes did not take the resident lane")
+        for j in range(STORE_W16_OBJECTS):
+            planes = store16.gather_rows(j, 0, 16)
+            check(planes is not None and planes.dtype == torch.int8
+                  and planes.device == store16.device, f"w=16 gather {j}")
+            check(ecutil.planar_object_bytes(store16, j, 1, k, cs,
+                                             OBJECT_SIZE) == objs[j],
+                  f"w=16 resident read {j}")
+        check(store16.device_installs == STORE_W16_OBJECTS
+              and store16.h2d_installs == 0, "w=16 installs crossed the host")
+        emit("w16", objects=STORE_W16_OBJECTS, **store16.page_stats())
+        del store16
+
+        # 5. writes and reads in one event loop: installs from a side
+        # stream land while later rounds run; reads gather on this one
+        side = torch.cuda.Stream(device)
+        readers = resident[-2 * STORE_MIXED:-STORE_MIXED]
+        writers = [j for j in range(n) if j not in resident][:STORE_MIXED]
+        for j in readers:
+            store.touch(j)  # the newest: the writes evict older residents
+
+        async def write(j):
+            product = await ecutil.planar_encode_async(codec, sinfo, objs[j],
+                                                       queue=q)
+            with torch.cuda.stream(side):
+                check(install(("mixed", j), product),
+                      f"store refused mixed write {j}")
+
+        async def read(j):
+            for _ in range(3):
+                await asyncio.sleep(0)
+                _forget_memo(store, [j])
+                check(ecutil.planar_object_bytes(store, j, 1, k, cs,
+                                                 OBJECT_SIZE) == objs[j],
+                      f"concurrent read of object {j}")
+
+        async def mixed():
+            await asyncio.gather(*(write(j) for j in writers),
+                                 *(read(j) for j in readers))
+
+        asyncio.run(mixed())
+        for j in writers:
+            check(ecutil.planar_object_bytes(store, ("mixed", j), 1, k, cs,
+                                             OBJECT_SIZE) == objs[j],
+                  f"read after a side-stream install of object {j}")
+        emit("concurrent", writes=len(writers), reads=3 * len(readers),
+             install_stream="side", read_stream="current")
+        d = store.perf.dump()
+        emit("counters", **{key: (v["avgcount"] if isinstance(v, dict) else v)
+                            for key, v in d.items()},
+             pack_s_avg=store.perf.avg("pack_s"),
+             unpack_s_avg=store.perf.avg("unpack_s"))
+        check(d["h2d_installs"] == 0, "a queue product crossed from the host")
+    finally:
+        q.close()
+    counts, _ = _read_counts(device, "(store)")
+    for name in ("gf2_matmul", "xor_schedule", "apply_packedbit",
+                 "to_packedbit", "from_packedbit"):
+        check(counts[name] > 0, f"{name} never launched in the store run")
+    _time_slab_ops(device, emit)
+    return counts
+
+
+def _read_parts(device, store, keys, k: int, cs: int) -> dict:
+    """Host milliseconds, medians over `keys`, of a resident read's parts,
+    each ended by a synchronize so that it holds its device work: the
+    gather of the data rows from the pages, K6 on them, the device->host
+    copy of the bytes, and the host's de-interleave into the object.  The
+    launches are not counted."""
+    from ceph_tpu_torch.ops.gf2 import from_packedbit
+
+    parts = {"gather_ms": [], "k6_ms": [], "d2h_ms": [],
+             "de_interleave_ms": []}
+    with _uncounted(device):
+        for key in keys:
+            _, _, meta = store.entry_info(key)
+            L, size = meta[1], meta[2]
+            t0 = time.perf_counter()
+            bits = store.gather_rows(key, 0, k * 8)
+            sync(device)
+            t1 = time.perf_counter()
+            out = from_packedbit(bits, k)
+            sync(device)
+            t2 = time.perf_counter()
+            rows = out[:, :L].cpu().numpy()
+            t3 = time.perf_counter()
+            data = rows.reshape(k, L // cs, cs).transpose(1, 0, 2).reshape(
+                -1)[:size].tobytes()
+            t4 = time.perf_counter()
+            check(len(data) == size, f"read parts of {key}")
+            for name, (a, b) in zip(parts, ((t0, t1), (t1, t2), (t2, t3),
+                                            (t3, t4))):
+                parts[name].append((b - a) * 1e3)
+    return {"objects": len(keys),
+            **{name: statistics.median(v) for name, v in parts.items()}}
+
+
+def _time_slab_ops(device, emit) -> None:
+    """slab_install of one object's 88 pages and slab_gather of its 64 data
+    pages, each against a CPU sub-slab, CUDA-event medians with the L2
+    flushed, beside a copy of the same bytes and the bytes' bound (K5 and
+    K6 at the store's shapes are phase 2's kernel and floor lines)."""
+    import torch
+
+    from ceph_tpu_torch.ops.slab import new_subslab, slab_gather, slab_install
+
+    words = STORE_PAGE // 4
+    rng = np.random.default_rng(SEED + 5)
+    slab = new_subslab(256, words, torch.device(device))
+    plain = new_subslab(256, words, torch.device("cpu"))
+    for name, n in (("slab_install", 88), ("slab_gather", 64)):
+        idx = rng.permutation(256)[:n]
+        if name == "slab_install":
+            data = torch.from_numpy(rng.integers(-2**31, 2**31, (n, words),
+                                                 dtype=np.int32))
+            run = functools.partial(slab_install, slab, data.to(device), idx)
+            run()
+            slab_install(plain, data, idx)
+            got, want = slab.cpu(), plain
+        else:
+            run = functools.partial(slab_gather, slab, idx)
+            got, want = run().cpu(), slab_gather(plain, idx)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0, f"{name}: max_abs_err {err}")
+        nbytes = n * STORE_PAGE  # read once and written once
+        src = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        dst = torch.empty_like(src)
+        emit("slab", op=name, pages=n, page_bytes=STORE_PAGE, max_abs_err=err,
+             ms=time_ms(run, TIMING_REPS),
+             copy_ms=time_ms(lambda: dst.copy_(src), TIMING_REPS),
+             bound_ms=2 * nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+        del src, dst
+
+
 # ---------------------------------------------------------------- phase 4 --
 
 def phase_split(device) -> None:
@@ -1236,10 +1670,12 @@ def main() -> int:
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)}")
         phase_build()
-        rows = phase_kernels("cuda")
+        rows = phase_kernels("cuda", card)
         counts, routes = phase_main("cuda")
         for name, n in phase_queue("cuda", card).items():
             counts[name]["queue"] = n
+        for name, n in phase_store("cuda", card).items():
+            counts[name]["store"] = n
         phase_split("cuda")
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

@@ -21,6 +21,7 @@ from ceph_tpu_torch.ops import cuda_gf2, cuda_packedbit
 from ceph_tpu_torch.ops import gf2 as port_gf2
 from ceph_tpu_torch.parallel.service import BatchingQueue
 from ceph_tpu_torch.rados import ecutil
+from ceph_tpu_torch.rados.pagestore import PagedResidentStore
 
 pytestmark = pytest.mark.cuda
 
@@ -391,3 +392,96 @@ def test_queue_plane_lanes_match_cpu_queue(card):
         c = c if isinstance(c, tuple) else (c,)
         for a, b in zip(g, c):
             assert np.array_equal(host(a), host(b))
+
+
+def test_device_arm_store_on_the_card_matches_the_host_arm(card):
+    """The paged store's device arm on CUDA sub-slabs against its host arm
+    and against the device arm on CPU tensors: reads, partial gathers,
+    eviction, a parity shed and a raw resident, with the same counters;
+    the CUDA device arm never commits a host page."""
+    rng = np.random.default_rng(23)
+    stores = [PagedResidentStore(40 * 4096, page_bytes=4096, device=card),
+              PagedResidentStore(40 * 4096, page_bytes=4096, device=card,
+                                 device_arm=False),
+              PagedResidentStore(40 * 4096, page_bytes=4096, device="cpu",
+                                 device_arm=True)]
+    assert [s.device_arm for s in stores] == [True, False, True]
+    objs = [rng.integers(0, 256, (6, B), dtype=np.uint8)
+            for B in (100, 3000, 4096, 4128, 12256, 13, 20000)]
+    raw = rng.integers(0, 256, 9999, dtype=np.uint8).tobytes()
+    logs = []
+    for st in stores:
+        log = []
+        for i, rows in enumerate(objs):
+            log.append(st.admit(f"o{i}", rows, layout="packedbit",
+                                meta=(i,)) is not None)
+            log.append(st.put_planar(f"o{i}", st.admit(
+                f"t{i}", rows, layout="packedbit"), w=8, n_rows=6,
+                meta=(i,), trim=rows.shape[1], data_rows=32))
+        for i in range(len(objs)):
+            got = st.read(f"o{i}")
+            log.append(None if got is None else got.tobytes())
+            g = st.gather_rows(f"o{i}", 3, 40)
+            log.append(None if g is None else
+                       np.asarray(g.cpu() if torch.is_tensor(g) else g)
+                       .tobytes())
+        log.append(st.shed_parity("o6"))
+        log.append(st.gather_rows("o6", 0, 32) is not None)
+        log.append((st.put_raw("r", raw), st.read_raw("r") == raw))
+        stats = st.stats()
+        for key in ("device_arm", "device_slabs", "h2d_installs",
+                    "device_installs", "d2h_gathers"):
+            stats.pop(key)
+        log.append(stats)
+        logs.append(log)
+    assert logs[0] == logs[1] == logs[2]
+    dev = stores[0]
+    assert dev._slabs == [] and all(s.is_cuda for s in dev._dev_slabs
+                                    if s is not None)
+    assert dev.h2d_installs == 1  # the raw resident; every admit is native
+    assert dev.device_installs == stores[2].device_installs
+    torch.cuda.synchronize()
+
+
+def test_install_of_a_queue_product_while_the_next_round_runs(card):
+    """Resident writes through a CUDA queue, each product installed in a
+    device-arm store from a side stream as it arrives while later rounds
+    run, and read back on the default stream: every object equals its
+    bytes, and no product crossed from the host."""
+    codec = JerasurePlugin().factory(dict(technique="reed_sol_van", k="8",
+                                          m="3", plugin="jerasure"))
+    sinfo = ecutil.StripeInfo(k=8, stripe_width=8 * 4096)
+    rng = np.random.default_rng(29)
+    bufs = [rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
+            for _ in range(8)]
+    q = BatchingQueue(device=card, max_pending_bytes=2 << 20)
+    store = PagedResidentStore(64 << 20, page_bytes=64 << 10, queue=q,
+                               device=card)
+    side = torch.cuda.Stream()
+
+    async def write(i):
+        product = await ecutil.planar_encode_async(codec, sinfo, bufs[i],
+                                                   queue=q)
+        _, bits, n_rows, n_cols, w = product
+        with torch.cuda.stream(side):
+            assert store.put_planar(i, bits, w=w, n_rows=n_rows,
+                                    meta=(1, n_cols, len(bufs[i])),
+                                    trim=n_cols, data_rows=8 * w)
+        return product
+
+    async def drive():
+        return await asyncio.gather(*(write(i) for i in range(len(bufs))))
+
+    try:
+        products = asyncio.run(asyncio.wait_for(drive(), 120))
+    finally:
+        q.close()
+    for i, buf in enumerate(bufs):
+        assert ecutil.planar_object_bytes(store, i, 1, 8, 4096,
+                                          len(buf)) == buf
+        rows = ecutil.planar_rows(store, i, 1)
+        for a, b in zip(rows, products[i][0]):
+            assert np.array_equal(a, np.asarray(b))
+    assert store.device_installs == len(bufs) and store.h2d_installs == 0
+    assert q.dispatches < len(bufs)
+    torch.cuda.synchronize()

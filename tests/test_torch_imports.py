@@ -17,9 +17,11 @@ import sys
 import ceph_tpu_torch.ec.plugins.cuda
 import ceph_tpu_torch.ops.cuda_gf2
 import ceph_tpu_torch.ops.cuda_packedbit
+import ceph_tpu_torch.ops.slab
 import ceph_tpu_torch.parallel.service
 import ceph_tpu_torch.rados.ecutil
 import ceph_tpu_torch.rados.messenger
+import ceph_tpu_torch.rados.pagestore
 import ceph_tpu_torch.tools.benchmark
 from ceph_tpu_torch.ec.registry import registry
 registry.factory("jerasure", "", {"plugin": "jerasure", "k": "2", "m": "1"})
