@@ -51,6 +51,24 @@
 //   word column a thread, from K4's device functions.  Bound: bytes, each
 //   byte read once and written once in the other layout (2 * 4 MiB at the
 //   main shape: 2.5 us).
+// * to_packedbit_paged / from_packedbit_paged: K5 and K6 addressed through
+//   a paged resident's page table (int64 addresses of its pages in the
+//   store's sub-slabs, in order; a resident's words run through them
+//   page_words a page, so a plane row may straddle two pages and the pages
+//   lie anywhere in any sub-slab).  At the transposes' sizes one pass over
+//   the bytes costs what a copy of them costs (PERF.md), so the gain is in
+//   passes, not cycles: the paged K6 reads each plane word once from its
+//   page and writes each byte once where the read wants it, either as
+//   shard rows or, for an object read, already de-interleaved into the
+//   object's stripe-major order with the object's tail cut off; this
+//   replaces the gather of the pages into a fresh tensor, K6 and the
+//   host's de-interleave.  The paged K5 writes an admit's plane words
+//   straight into its pages and zeroes the last page's tail, in place of
+//   K5 into a tensor, a zero-filled page image, a copy into it and the
+//   install.  Bound: bytes, as K5 and K6.  A thread's eight plane words
+//   lie row_words apart: one 32-bit division by page_words finds the
+//   first's page (any page size the store takes), and the others' pages
+//   follow by stepping, so their eight page addresses load at once.
 //
 // Every kernel masks its own ragged edge: pad columns read as zero and only
 // the real columns are written, so nothing is padded on the host.
@@ -509,6 +527,123 @@ __global__ void from_packedbit_kernel(const uint32_t* __restrict__ planes,
   pack_store(wx, out + (long long)o * 32 * W, 32 * w, 32 * W, vec16);
 }
 
+// ------------------------------------------------------ paged K5/K6 --
+
+// Word `flat` of a paged resident whose pages start at addr[0], addr[1], ...
+__device__ __forceinline__ uint32_t* page_word(const long long* __restrict__ addr,
+                                               unsigned flat, unsigned page_words) {
+  const unsigned p = flat / page_words;
+  return reinterpret_cast<uint32_t*>(__ldg(addr + p)) + (flat - p * page_words);
+}
+
+// Words flat, flat + step, ..., flat + 7 * step of a paged resident (one
+// word column of eight plane rows): one division for the first, then
+// each page and offset by stepping, so that the eight page addresses are
+// known before any word is loaded.
+__device__ __forceinline__ void plane_words(const long long* __restrict__ addr,
+                                            unsigned flat, unsigned step,
+                                            unsigned page_words,
+                                            uint32_t* at[8]) {
+  unsigned p = flat / page_words, off = flat - p * page_words;
+  const unsigned q = step / page_words, r = step - q * page_words;
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    at[x] = reinterpret_cast<uint32_t*>(__ldg(addr + p)) + off;
+    p += q;
+    off += r;
+    if (off >= page_words) {
+      off -= page_words;
+      ++p;
+    }
+  }
+}
+
+// The first n (at most 32) of the 32 bytes in u (eight little-endian words)
+// to dst; vec16: dst is a multiple of 16, so 32 bytes go as two 16-byte
+// stores.
+__device__ __forceinline__ void store_bytes(const uint32_t u[8], uint8_t* dst,
+                                            int n, bool vec16) {
+  if (vec16 && n == 32) {
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    d[0] = make_uint4(u[0], u[1], u[2], u[3]);
+    d[1] = make_uint4(u[4], u[5], u[6], u[7]);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 32; ++c)  // unrolled, so that u stays in registers
+    if (c < n) dst[c] = static_cast<uint8_t>(u[c >> 2] >> (8 * (c & 3)));
+}
+
+// Thread (w, o): plane rows o*8 .. o*8+7 of the resident, starting at its
+// word w0, row_words words a row; word column w -> bytes 32w .. 32w+31 of
+// output row o, of which the first L are real.  rows: out is [out_rows, L].
+// object (cs > 0): byte c of row o goes to (c / cs) * out_rows * cs +
+// o * cs + c % cs, and only below `limit` (the object's size).  Where cs is
+// a multiple of 32 a thread's 32 bytes stay in one chunk and go as one run
+// (two 16-byte stores where aligned); else byte by byte.
+__global__ void from_packedbit_paged_kernel(const long long* __restrict__ addr,
+                                            unsigned page_words, unsigned w0,
+                                            unsigned row_words, int L, int cs,
+                                            long long limit,
+                                            uint8_t* __restrict__ out,
+                                            bool vec16) {
+  const unsigned w = blockIdx.x * blockDim.x + threadIdx.x;
+  const int o = blockIdx.y;
+  if (w >= (unsigned)(L + 31) / 32) return;
+  uint32_t* at[8];
+  plane_words(addr, w0 + (unsigned)o * 8u * row_words + w, row_words,
+              page_words, at);
+  uint32_t wx[8], u[8];
+#pragma unroll
+  for (int x = 0; x < 8; ++x) wx[x] = __ldg(at[x]);
+  words_to_bytes(wx, u);
+  const unsigned c = 32u * w;
+  const int real = min(32, L - (int)c);
+  if (cs == 0) {
+    store_bytes(u, out + (long long)o * L + c, real, vec16);
+    return;
+  }
+  const long long K = gridDim.y;
+  if (cs % 32 == 0) {
+    const long long dst = (long long)(c / cs) * K * cs + (long long)o * cs + c % cs;
+    const long long n = min((long long)real, limit - dst);
+    if (n > 0) store_bytes(u, out + dst, (int)n, vec16);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const unsigned cc = c + j;
+    const long long dst = (long long)(cc / cs) * K * cs + (long long)o * cs + cc % cs;
+    if (j < real && dst < limit) out[dst] = static_cast<uint8_t>(u[j >> 2] >> (8 * (j & 3)));
+  }
+}
+
+// Thread (w, j), j < n: the 32 bytes of word column w of row j -> its 8
+// plane words, into words (j*8+x)*W + w of the resident's pages.  Row
+// j = n (one more row of blocks): zeros into words total .. end-1, the last
+// page's tail.
+__global__ void to_packedbit_paged_kernel(const uint8_t* __restrict__ data,
+                                          long long B,
+                                          const long long* __restrict__ addr,
+                                          unsigned page_words, unsigned total,
+                                          unsigned end, bool vec16) {
+  const unsigned w = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned j = blockIdx.y;
+  const unsigned W = (unsigned)((B + 31) / 32);
+  if (j == gridDim.y - 1) {
+    for (unsigned t = total + w; t < end; t += gridDim.x * blockDim.x)
+      *page_word(addr, t, page_words) = 0;
+    return;
+  }
+  if (w >= W) return;
+  uint32_t v[8], wx[8], *at[8];
+  load32(data + j * B, 32LL * w, B, vec16, v);
+  plane_words(addr, j * 8 * W + w, W, page_words, at);
+  bytes_to_words(v, wx);
+#pragma unroll
+  for (int x = 0; x < 8; ++x) *at[x] = wx[x];
+}
+
 bool valid_threads(int threads) {
   return threads >= 32 && threads <= 1024 && threads % 32 == 0;
 }
@@ -588,6 +723,47 @@ extern "C" int ctt_from_packedbit(const uint32_t* planes, int rows,
   from_packedbit_kernel<<<grid, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       planes, W, out, aligned(out, 16));
+  return cudaGetLastError();
+}
+
+extern "C" int ctt_from_packedbit_paged(const long long* addr, int n_pages,
+                                        long long page_words, long long w0,
+                                        long long row_words, int out_rows,
+                                        long long L, long long cs,
+                                        long long limit, uint8_t* out,
+                                        int threads, void* stream) {
+  const long long words = w0 + 8LL * out_rows * row_words;
+  if (!valid_threads(threads) || n_pages < 1 || page_words < 1 || w0 < 0 ||
+      row_words < 1 || out_rows < 1 || out_rows > 65535 || L < 1 ||
+      L > 32 * row_words || words > (long long)n_pages * page_words ||
+      (long long)n_pages * page_words > 0x7fffffffLL || cs < 0 ||
+      (cs > 0 && L % cs != 0) || !aligned(addr, 8))
+    return cudaErrorInvalidValue;
+  const bool vec16 = aligned(out, 16) && (cs > 0 ? cs % 16 == 0 : L % 16 == 0);
+  const dim3 grid((unsigned)((L + 32LL * threads - 1) / (32LL * threads)),
+                  (unsigned)out_rows);
+  from_packedbit_paged_kernel<<<grid, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      addr, (unsigned)page_words, (unsigned)w0, (unsigned)row_words, (int)L,
+      (int)cs, cs > 0 ? limit : 0, out, vec16);
+  return cudaGetLastError();
+}
+
+extern "C" int ctt_to_packedbit_paged(const uint8_t* data, int n, long long B,
+                                      const long long* addr, int n_pages,
+                                      long long page_words, int threads,
+                                      void* stream) {
+  const long long W = (B + 31) / 32;
+  const long long total = 8LL * n * W, end = (long long)n_pages * page_words;
+  if (!valid_threads(threads) || n < 1 || n > 65534 || B < 1 ||
+      page_words < 1 || n_pages < 1 || total > end ||
+      end - total >= page_words || end > 0x7fffffffLL || !aligned(addr, 8))
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((W + threads - 1) / threads), (unsigned)n + 1);
+  to_packedbit_paged_kernel<<<grid, threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      data, B, addr, (unsigned)page_words, (unsigned)total, (unsigned)end,
+      aligned(data, 16) && B % 16 == 0);
   return cudaGetLastError();
 }
 

@@ -72,6 +72,25 @@ int ctt_to_packedbit(const uint8_t* data, int n, long long B, uint32_t* planes,
 int ctt_from_packedbit(const uint32_t* planes, int rows, long long W,
                        uint8_t* out, int threads, void* stream);
 
+// Paged K6: plane rows of a paged resident (addr: int64 addresses of its
+// n_pages pages, page_words words each, in order), out_rows*8 rows of
+// row_words words from its word w0 -> bytes.  cs = 0: [out_rows, L] shard
+// rows.  cs > 0 (L a multiple of cs): the object's stripe-major bytes,
+// byte c of row o at (c / cs) * out_rows * cs + o * cs + c % cs, those
+// below `limit` only.  L <= 32 * row_words.
+int ctt_from_packedbit_paged(const long long* addr, int n_pages,
+                             long long page_words, long long w0,
+                             long long row_words, int out_rows, long long L,
+                             long long cs, long long limit, uint8_t* out,
+                             int threads, void* stream);
+
+// Paged K5: [n, B] uint8 -> the plane words of a resident of n_pages pages
+// (n*8 rows of ceil(B/32) words, through addr as above), and zeros over the
+// rest of the last page.
+int ctt_to_packedbit_paged(const uint8_t* data, int n, long long B,
+                           const long long* addr, int n_pages,
+                           long long page_words, int threads, void* stream);
+
 const char* ctt_pb_error_string(int code);
 
 #ifdef __cplusplus

@@ -16,7 +16,11 @@ is an operand, so one build serves every matrix:
   -> plane words -> program -> [out, B] uint8 in one launch, with two plane
   words a lane where the grid still puts TARGET_WARPS_PER_SM warps on each
   SM, else one;
-* ``to_packedbit``    (K5) and ``from_packedbit`` (K6): the two transposes.
+* ``to_packedbit``    (K5) and ``from_packedbit`` (K6): the two transposes;
+* ``to_packedbit_paged`` and ``from_packedbit_paged``: K5 and K6 through a
+  paged resident's page table (ops/slab.py ``PageTable``), so that an admit
+  writes its plane words straight into its pages, and a read goes from the
+  pages to shard rows, or to an object's stripe-major bytes, in one pass.
 
 Plane words are ``torch.int32`` tensors carrying the u32 bit pattern (PyTorch
 on the CPU has no shifts on uint32): [rows, ceil(B/32)], bit b of word i is
@@ -50,6 +54,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.ops import build
+from ceph_tpu_torch.ops.slab import PageTable, gather_words, install_pages
 
 #: step flags (csrc/packedbit.cuh): the step starts or ends an output row
 FIRST, LAST = 1, 2
@@ -381,6 +386,33 @@ def from_packedbit_plain(planes: torch.Tensor, out_rows: int) -> torch.Tensor:
     return out
 
 
+def from_packedbit_paged_plain(table: PageTable, w0: int, row_words: int,
+                               out_rows: int, L: int,
+                               cs: int = 0, object_size: int = 0
+                               ) -> torch.Tensor:
+    """Plain version of from_packedbit_paged: slab_gather of the pages the
+    rows lie in, from_packedbit_plain, the first L columns, and for an
+    object read (cs > 0) the de-interleave [k, L/cs, cs] -> stripe-major,
+    cut to object_size."""
+    words = gather_words(table, w0, out_rows * 8 * row_words)
+    rows = from_packedbit_plain(words.view(out_rows * 8, row_words),
+                                out_rows)[:, :L]
+    if not cs:
+        return rows.contiguous()
+    return (rows.reshape(out_rows, L // cs, cs).transpose(0, 1)
+            .reshape(-1)[:object_size].contiguous())
+
+
+def to_packedbit_paged_plain(data: torch.Tensor, table: PageTable) -> None:
+    """Plain version of to_packedbit_paged: to_packedbit_plain, the words
+    in a zero-filled image of the pages, then slab_install of the image."""
+    words = to_packedbit_plain(data).view(-1)
+    image = torch.zeros(len(table.pages) * table.page_words,
+                        dtype=torch.int32, device=data.device)
+    image[:words.numel()] = words
+    install_pages(table, image.view(len(table.pages), table.page_words))
+
+
 def apply_packedbit_plain(prog: Program, data: torch.Tensor,
                           resident: bool = False):
     """Plain version of apply_packedbit: to_packedbit, the schedule,
@@ -406,8 +438,12 @@ def _lib() -> ctypes.CDLL:
     lib.ctt_apply_packedbit.argtypes = [p, i, i, i, i, i, p, ll, p, p, i, p]
     lib.ctt_to_packedbit.argtypes = [p, i, ll, p, i, p]
     lib.ctt_from_packedbit.argtypes = [p, i, ll, p, i, p]
+    lib.ctt_from_packedbit_paged.argtypes = [p, i, ll, ll, ll, i, ll, ll, ll,
+                                             p, i, p]
+    lib.ctt_to_packedbit_paged.argtypes = [p, i, ll, p, i, ll, i, p]
     for fn in (lib.ctt_xor_schedule, lib.ctt_apply_packedbit,
-               lib.ctt_to_packedbit, lib.ctt_from_packedbit):
+               lib.ctt_to_packedbit, lib.ctt_from_packedbit,
+               lib.ctt_from_packedbit_paged, lib.ctt_to_packedbit_paged):
         fn.restype = i
     lib.ctt_pb_error_string.argtypes = [i]
     lib.ctt_pb_error_string.restype = ctypes.c_char_p
@@ -642,6 +678,76 @@ def from_packedbit(planes: torch.Tensor, out_rows: int) -> torch.Tensor:
     return out
 
 
+def _check_table(name: str, table: PageTable, words: int) -> None:
+    n = len(table.pages) * table.page_words
+    _check(words <= n < 2 ** 31, f"{name}: {words} words in a page table of "
+           f"{len(table.pages)} pages of {table.page_words} words")
+
+
+def from_packedbit_paged(table: PageTable, w0: int, row_words: int,
+                         out_rows: int, L: int, cs: int = 0,
+                         object_size: int = 0) -> torch.Tensor:
+    """Plane rows of a paged resident -> bytes, in one pass: the
+    out_rows*8 rows of row_words words from the resident's word w0 give
+    out_rows rows of L bytes (L <= 32*row_words).  cs = 0: those rows,
+    [out_rows, L].  cs > 0: an object read, its stripe-major bytes (byte c
+    of row o at (c // cs)*out_rows*cs + o*cs + c % cs; L a multiple of
+    cs), the first object_size of them, flat."""
+    name = "from_packedbit_paged"
+    words = w0 + out_rows * 8 * row_words
+    _check(w0 >= 0 and row_words >= 1 and 1 <= out_rows <= 65535
+           and 0 <= L <= 32 * row_words, f"{name}: {out_rows} rows of {L} "
+           f"bytes from {row_words} words a plane row at word {w0}")
+    _check_table(name, table, words)
+    _check(cs >= 0 and (not cs or (L % cs == 0 and object_size >= 0)),
+           f"{name}: L {L}, cs {cs}, object_size {object_size}")
+    if table.device.type == "cpu":
+        return from_packedbit_paged_plain(table, w0, row_words, out_rows, L,
+                                          cs, object_size)
+    n = min(object_size, out_rows * L) if cs else out_rows * L
+    out = torch.empty(n if cs else (out_rows, L), dtype=torch.uint8,
+                      device=table.device)
+    if n == 0:
+        return out
+    table.addr.record_stream(torch.cuda.current_stream(table.device))
+    with torch.cuda.device(table.device):
+        rc = _lib().ctt_from_packedbit_paged(
+            table.addr.data_ptr(), len(table.pages), table.page_words, w0,
+            row_words, out_rows, L, cs, n, out.data_ptr(), TRANSPOSE_THREADS,
+            _stream(table.device))
+    _raise_on(rc, name)
+    from_packedbit_paged.launches += 1
+    return out
+
+
+def to_packedbit_paged(data: torch.Tensor, table: PageTable) -> None:
+    """[n, B] uint8 -> its n*8 rows of ceil(B/32) plane words, written
+    straight into the resident's pages (the table has just enough of them),
+    and zeros over the rest of the last page."""
+    name = "to_packedbit_paged"
+    _check_device(name, data)
+    _check(data.dtype == torch.uint8, f"{name}: data must be uint8, got "
+           f"{data.dtype}")
+    n, B = data.shape
+    _check(1 <= n <= 65534 and B >= 1, f"{name}: shape {tuple(data.shape)} "
+           "(1..65534 rows, B >= 1)")
+    words = n * 8 * -(-B // 32)
+    _check_table(name, table, words)
+    _check(len(table.pages) == -(-words // table.page_words),
+           f"{name}: {len(table.pages)} pages for {words} words")
+    _check(data.device == table.device,
+           f"{name}: data on {data.device}, pages on {table.device}")
+    if data.device.type == "cpu":
+        return to_packedbit_paged_plain(data, table)
+    table.addr.record_stream(torch.cuda.current_stream(data.device))
+    with torch.cuda.device(data.device):
+        rc = _lib().ctt_to_packedbit_paged(
+            data.data_ptr(), n, B, table.addr.data_ptr(), len(table.pages),
+            table.page_words, TRANSPOSE_THREADS, _stream(data.device))
+    _raise_on(rc, name)
+    to_packedbit_paged.launches += 1
+
+
 xor_schedule.launches = 0
 xor_schedule.routes = dict.fromkeys(XOR_ROUTES, 0)
 xor_schedule.last = None
@@ -650,3 +756,5 @@ apply_packedbit.routes = dict.fromkeys(APPLY_ROUTES, 0)
 apply_packedbit.last = None
 to_packedbit.launches = 0
 from_packedbit.launches = 0
+to_packedbit_paged.launches = 0
+from_packedbit_paged.launches = 0

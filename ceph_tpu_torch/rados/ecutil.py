@@ -531,6 +531,7 @@ async def planar_encode_async(codec, sinfo: StripeInfo, data: bytes,
 
 
 # the function that brings gathered slab bytes to the host in this module
+# (a paged store's read_paged is its own exit)
 SLAB_IO_BOUNDARY = ("_pack_rows",)
 
 
@@ -555,6 +556,16 @@ def _pack_rows(bits, w: int, n_rows: int, L: int, store) -> np.ndarray:
     return out
 
 
+def _read_paged(store, key, r0: int, r1: int, out_rows: int, L: int,
+                **layout) -> Optional[np.ndarray]:
+    """The rows' host bytes from a paged store's pages in one launch
+    (PagedResidentStore.read_paged: packed-bit words on its device arm), or
+    None where that store does not serve them: the caller then gathers and
+    takes _pack_rows."""
+    read = getattr(store, "read_paged", None)
+    return None if read is None else read(key, r0, r1, out_rows, L, **layout)
+
+
 def planar_rows(store, key, version) -> Optional[List[np.ndarray]]:
     """All n shard rows packed from the resident under `key`, or None when
     absent, at another version, or PARTIAL (a paged resident whose parity
@@ -567,10 +578,12 @@ def planar_rows(store, key, version) -> Optional[List[np.ndarray]]:
     w, n_rows, meta = got
     if not meta or meta[0] != version:
         return None
-    bits = store.gather_rows(key, 0, n_rows * w)
-    if bits is None:
-        return None
-    rows = _pack_rows(bits, w, n_rows, meta[1], store)
+    rows = _read_paged(store, key, 0, n_rows * w, n_rows, meta[1])
+    if rows is None:
+        bits = store.gather_rows(key, 0, n_rows * w)
+        if bits is None:
+            return None
+        rows = _pack_rows(bits, w, n_rows, meta[1], store)
     return [rows[i] for i in range(n_rows)]
 
 
@@ -584,10 +597,13 @@ def planar_shard_bytes(store, key, version, shard: int) -> Optional[bytes]:
     w, _n_rows, meta = got
     if not meta or meta[0] != version:
         return None
-    bits = store.gather_rows(key, shard * w, (shard + 1) * w)
-    if bits is None:
-        return None
-    return _pack_rows(bits, w, 1, meta[1], store).reshape(-1).tobytes()
+    rows = _read_paged(store, key, shard * w, (shard + 1) * w, 1, meta[1])
+    if rows is None:
+        bits = store.gather_rows(key, shard * w, (shard + 1) * w)
+        if bits is None:
+            return None
+        rows = _pack_rows(bits, w, 1, meta[1], store)
+    return rows.reshape(-1).tobytes()
 
 
 def planar_object_bytes(store, key, version, k: int, cs: int,
@@ -610,14 +626,21 @@ def planar_object_bytes(store, key, version, k: int, cs: int,
         cached = memo_get(key, version)
         if cached is not None:
             return cached
-    data_bits = store.gather_rows(key, 0, k * w)
-    if data_bits is None:
-        return None
     L = meta[1]
-    rows = _pack_rows(data_bits, w, k, L, store)
-    n_stripes = max(1, L // cs)
-    out = rows.reshape(k, n_stripes, cs).transpose(1, 0, 2)
-    result = out.reshape(-1)[:object_size].tobytes()
+    # a paged store's packed-bit words go from its pages to the object's
+    # stripe-major bytes in one launch
+    out = _read_paged(store, key, 0, k * w, k, L, cs=cs,
+                      object_size=object_size)
+    if out is not None:
+        result = out.tobytes()
+    else:
+        data_bits = store.gather_rows(key, 0, k * w)
+        if data_bits is None:
+            return None
+        rows = _pack_rows(data_bits, w, k, L, store)
+        n_stripes = max(1, L // cs)
+        out = rows.reshape(k, n_stripes, cs).transpose(1, 0, 2)
+        result = out.reshape(-1)[:object_size].tobytes()
     if memo_get is not None:
         store.memo_put(key, version, result)
     return result

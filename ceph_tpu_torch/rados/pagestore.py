@@ -33,8 +33,14 @@ behind one page table:
   host-sourced install crosses to the card as ONE non-blocking copy of the
   zero-padded page image from pinned memory (``h2d_installs``); a resident
   already on the device (a queue product, packed-bit words or int8 planes)
-  installs with no host copy (``device_installs``); gathers stay on the
-  device and feed ``from_packedbit`` there, so bytes leave the card only at
+  installs with no host copy (``device_installs``), and ``admit`` of
+  packed-bit rows writes its words straight into its pages
+  (``to_packedbit_paged``).  Each resident keeps its page table
+  (``PageTable``, with the pages' addresses on the card), built at install.
+  Reads of packed-bit words (``read``, ``read_paged``: ecutil's planar
+  helpers) go from the pages to the bytes in one launch
+  (``from_packedbit_paged``) and cross to the host as one copy into pinned
+  memory; ``gather_rows`` stays on the device.  Bytes leave the card only at
   the declared exits (``d2h_gathers``, see ``SLAB_IO_BOUNDARY``).  Nothing
   on this arm falls back to host pages.
 
@@ -65,15 +71,17 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.common.perf_counters import PerfCounters, PerfCountersBuilder
-from ceph_tpu_torch.ops.slab import (is_device_array, new_subslab, slab_gather,
-                                     slab_install)
+from ceph_tpu_torch.ops.cuda_packedbit import (from_packedbit_paged,
+                                               to_packedbit_paged)
+from ceph_tpu_torch.ops.slab import (PageTable, gather_words, install_pages,
+                                     is_device_array, new_subslab)
 from ceph_tpu_torch.utils.cudadev import DeviceLike, resolve_device
 
 _SLAB_SHIFT = 8  # 2**8 pages per lazily committed sub-slab
 
 # the functions that may bring gathered slab bytes to the host: the
-# pagestore's own packed-byte exit is read()
-SLAB_IO_BOUNDARY = ("read",)
+# pagestore's packed-byte exits
+SLAB_IO_BOUNDARY = ("read", "read_paged")
 
 _STAGING_ALIGN = 4096
 
@@ -143,10 +151,34 @@ class CacheDirtyRecord:
 
 
 class _Entry:
-    __slots__ = ("pages", "dtype", "rows", "cols", "itemsize", "w",
+    __slots__ = ("pages", "table", "dtype", "rows", "cols", "itemsize", "w",
                  "n_rows", "meta", "trim", "data_rows", "mono_bytes",
                  "total_words", "live_pages", "dirty", "dirty_info",
                  "dirty_since", "dirty_gen")
+
+
+class _PackedRows:
+    """[n, B] uint8 rows on the store's device that ``admit`` installs as
+    their plane words, written straight into the pages (the device arm's
+    ``to_packedbit_paged``); shaped as those words."""
+
+    dtype = torch.int32
+
+    def __init__(self, data: torch.Tensor):
+        self.data = data
+        self.shape = (data.shape[0] * 8, -(-data.shape[1] // 32))
+
+
+def _to_host(out: torch.Tensor) -> np.ndarray:
+    """The one device->host copy of a paged read: into pinned memory from
+    torch's caching host allocator, waited for; the result is a view of
+    that memory.  A CPU tensor is its own host copy."""
+    if out.device.type == "cpu":
+        return out.numpy()
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    torch.cuda.current_stream(out.device).synchronize()
+    return host.numpy()
 
 
 def build_pagestore_perf() -> PerfCounters:
@@ -427,13 +459,14 @@ class PagedResidentStore:
         return min(cols, ((int(trim) + 3) // 4) * 4)
 
     def _install_pages_locked(self, src, rows: int, keep: int, cols: int,
-                              total_words: int,
-                              from_device: bool) -> List[Optional[int]]:
-        """Device-arm install (lock held): allocate page ids, build the
-        zero-padded page image on the device (from a device resident with no
-        host copy, or from host rows with ONE non-blocking copy out of pinned
-        memory), and write it into each touched sub-slab with one
-        slab_install.  Returns the page-id list."""
+                              total_words: int, from_device: bool):
+        """Device-arm install (lock held): allocate page ids and the page
+        table, then write the words into the pages: admitted rows
+        (``_PackedRows``) as their plane words by to_packedbit_paged;
+        anything else as a zero-padded page image built on the device (from
+        a device resident with no host copy, or from host rows with ONE
+        non-blocking copy out of pinned memory), written into each touched
+        sub-slab with one slab_install.  Returns (page ids, table)."""
         npages = -(-total_words // self.page_words) if total_words else 0
         pages: List[Optional[int]] = []
         for _ in range(npages):
@@ -441,19 +474,28 @@ class PagedResidentStore:
             assert pid is not None  # _available_pages said so
             pages.append(pid)
         if not npages:
-            return pages
+            return pages, None
         stream = self._slab_stream_begin()
-        n = npages * self.page_words
+        table = PageTable(pages, {s: self._dev_slab(s) for s in
+                                  sorted({p >> _SLAB_SHIFT for p in pages})},
+                          self.page_words, _SLAB_SHIFT)
         if from_device:
+            data = src.data if isinstance(src, _PackedRows) else src
             if stream is not None:
                 # the caller may free its product once this returns: its
-                # memory must wait for the copy below on this stream
-                src.record_stream(stream)
+                # memory must wait for the writes below on this stream
+                data.record_stream(stream)
+            self.device_installs += 1
+            self.perf.inc("device_installs")
+        if isinstance(src, _PackedRows):
+            to_packedbit_paged(src.data, table)
+            self._slab_stream_end(stream)
+            return pages, table
+        n = npages * self.page_words
+        if from_device:
             image = torch.zeros(n, dtype=torch.int32, device=self.device)
             image[:total_words].view(src.dtype).view(rows, cols)[
                 :, :keep].copy_(src[:, :keep])
-            self.device_installs += 1
-            self.perf.inc("device_installs")
         else:
             host = torch.zeros(n, dtype=torch.int32,
                                pin_memory=self.device.type == "cuda")
@@ -461,17 +503,9 @@ class PagedResidentStore:
             image = host.to(self.device, non_blocking=True)  # the ONE h2d
             self.h2d_installs += 1
             self.perf.inc("h2d_installs")
-        image = image.view(npages, self.page_words)
-        mask = (1 << _SLAB_SHIFT) - 1
-        groups: "OrderedDict[int, List[int]]" = OrderedDict()
-        for i, pid in enumerate(pages):
-            groups.setdefault(pid >> _SLAB_SHIFT, []).append(i)
-        for s, order in groups.items():
-            idx = np.array([pages[i] & mask for i in order], dtype=np.int64)
-            data = image if len(order) == npages else slab_gather(image, order)
-            slab_install(self._dev_slab(s), data, idx)
+        install_pages(table, image.view(npages, self.page_words))
         self._slab_stream_end(stream)
-        return pages
+        return pages, table
 
     def put_planar(self, key: Any, bits, w: int = 8,
                    n_rows: Optional[int] = None, meta: Any = None,
@@ -492,9 +526,11 @@ class PagedResidentStore:
         entry (the caller takes the uninstalled path; refusal is counted,
         never an error)."""
         # device-native install: a resident already on the store's device
-        # (a queue product) never bounces through host memory
-        from_device = (self.device_arm and is_device_array(bits, self.device)
-                       and bits.dtype in (torch.int32, torch.int8))
+        # (a queue product, or admitted rows) never bounces through host
+        # memory
+        from_device = isinstance(bits, _PackedRows) or (
+            self.device_arm and is_device_array(bits, self.device)
+            and bits.dtype in (torch.int32, torch.int8))
         if from_device:
             src = bits
             dtype = np.dtype(np.int32 if bits.dtype == torch.int32
@@ -542,8 +578,9 @@ class PagedResidentStore:
                 self.perf.inc("evict")
                 self.perf.inc("page_evictions", freed)
             e = _Entry()
+            e.table = None
             if self.device_arm:
-                e.pages = self._install_pages_locked(
+                e.pages, e.table = self._install_pages_locked(
                     src, rows, keep, cols, total_words, from_device)
             else:
                 e.pages = []
@@ -642,7 +679,7 @@ class PagedResidentStore:
         if any(p is None for p in span):
             return None
         if self.device_arm:
-            return self._gather_device_locked(e, r0, r1, w0, w1, p0, span)
+            return self._gather_device_locked(e, r0, r1, w0, w1)
         out = np.empty(w1 - w0, dtype=_WORDS)
         pos = 0
         for i, pid in enumerate(span):
@@ -658,29 +695,16 @@ class PagedResidentStore:
         return out.reshape(r1 - r0, e.cols)
 
     def _gather_device_locked(self, e: _Entry, r0: int, r1: int,
-                              w0: int, w1: int, p0: int,
-                              span: List[int]) -> torch.Tensor:
+                              w0: int, w1: int) -> torch.Tensor:
         """Device-arm gather (lock held): one slab_gather per touched
         sub-slab run, concatenated and sliced on the device.  The result is
         a fresh tensor, never a slab view: it stays valid across later
-        installs and feeds from_packedbit without leaving the device; the
-        host exits are read() and ecutil's ``_pack_rows`` (counted as
+        installs and stays on the device; the host exits are read(),
+        read_paged() and ecutil's ``_pack_rows`` (counted as
         ``d2h_gathers`` through note_d2h)."""
         stream = self._slab_stream_begin()
-        mask = (1 << _SLAB_SHIFT) - 1
-        parts = []
-        i = 0
-        while i < len(span):
-            s = span[i] >> _SLAB_SHIFT
-            idx = []
-            while i < len(span) and (span[i] >> _SLAB_SHIFT) == s:
-                idx.append(span[i] & mask)
-                i += 1
-            parts.append(slab_gather(self._dev_slab(s), idx))
+        out = gather_words(e.table, w0, w1 - w0)
         self._slab_stream_end(stream)
-        block = parts[0] if len(parts) == 1 else torch.cat(parts)
-        start = w0 - p0 * self.page_words
-        out = block.view(-1)[start:start + (w1 - w0)]
         if e.dtype != _WORDS:
             # little-endian words -> their bytes, LSB first, as numpy's
             # .view gives them on the host arm
@@ -778,11 +802,13 @@ class PagedResidentStore:
         return torch.from_numpy(np.ascontiguousarray(bits)).to(self.device)
 
     def admit(self, key: Any, rows: np.ndarray, w: int = 8,
-              meta: Any = None, layout: str = "planes"):
-        """Convert packed [n, B] uint8 rows on the store's device (K5 for
-        layout="packedbit", w=8 only; int8 planes for "planes") and keep
-        them page-resident (PlanarShardStore.admit contract).  Returns the
-        converted rows."""
+              meta: Any = None, layout: str = "planes") -> bool:
+        """Convert packed [n, B] uint8 rows on the store's device (plane
+        words for layout="packedbit", w=8 only; int8 planes for "planes")
+        and keep them page-resident (PlanarShardStore.admit contract).  On
+        the device arm packed-bit words are written straight into the pages
+        (to_packedbit_paged), so no converted tensor exists: the return is
+        put_planar's, whether the rows were installed."""
         from ceph_tpu_torch.ops.gf2 import to_packedbit, to_planar
 
         data = self._on_device(rows)
@@ -790,12 +816,12 @@ class PagedResidentStore:
             if w != 8:
                 raise ValueError("packed-bit residency is the w=8 byte "
                                  f"layout, got w={w}")
-            bits = to_packedbit(data)
+            bits = (_PackedRows(data.contiguous()) if self.device_arm
+                    else to_packedbit(data))
         else:
             bits = to_planar(data, w)
-        self.put_planar(key, bits, w=w, n_rows=rows.shape[0], meta=meta,
-                        trim=rows.shape[1])
-        return bits
+        return self.put_planar(key, bits, w=w, n_rows=rows.shape[0],
+                               meta=meta, trim=rows.shape[1])
 
     def note_d2h(self) -> None:
         """Count ONE device->host copy at a declared exit boundary (this
@@ -805,13 +831,70 @@ class PagedResidentStore:
             self.d2h_gathers += 1
             self.perf.inc("d2h_gathers")
 
+    def read_paged(self, key: Any, r0: int, r1: int, out_rows: int, L: int,
+                   cs: int = 0, object_size: int = 0) -> Optional[np.ndarray]:
+        """Bit-rows r0..r1 of a packed-bit resident on the device arm packed
+        to host bytes in one launch from its pages (from_packedbit_paged)
+        and one copy into pinned memory (a SLAB_IO_BOUNDARY exit, counted
+        in ``d2h_gathers``): [out_rows, L'] shard rows, or with cs > 0 the
+        object's first object_size stripe-major bytes, flat.  L' is L cut
+        to the resident's kept width, as a slice of the gathered rows would
+        cut it; an object read raises ValueError, as the reshape of such
+        rows would, unless L' is L // cs (at least 1) chunks.  None when
+        the entry is absent, partial over the range, or not packed-bit
+        words on the device arm: the caller then takes gather_rows.  No LRU
+        or hit/miss side effects."""
+        if not self.device_arm:
+            return None
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None or e.dtype != _WORDS:
+                return None
+            row_words = e.cols
+            w0, w1 = r0 * row_words, r1 * row_words
+            if w1 > e.total_words or w0 < 0 or w1 <= w0 or any(
+                    p is None for p in e.pages[w0 // self.page_words:
+                                               -(-w1 // self.page_words)]):
+                return None
+            if r1 - r0 != out_rows * 8:
+                raise ValueError(f"read_paged: {r1 - r0} plane rows for "
+                                 f"{out_rows} rows")
+            width = min(L, 32 * row_words)
+            if cs and width != max(1, L // cs) * cs:
+                raise ValueError(f"read_paged: rows of {width} bytes are "
+                                 f"not {max(1, L // cs)} chunks of {cs}")
+            stream = self._slab_stream_begin()
+            out = from_packedbit_paged(e.table, w0, row_words, out_rows,
+                                       width, cs, object_size)
+            self._slab_stream_end(stream)
+        host = _to_host(out)
+        self.note_d2h()
+        return host
+
     def read(self, key: Any) -> Optional[np.ndarray]:
         """The resident rows packed back to [n, B] uint8 host bytes; None
-        when absent or partial.  On the device arm the gather feeds
-        from_packedbit on the device, and the copy here is the single
-        device->host copy (the SLAB_IO_BOUNDARY exit)."""
+        when absent or partial.  On the device arm packed-bit words go
+        through read_paged (one launch from the pages, one copy into pinned
+        memory); other layouts gather and convert on the device, and the
+        copy here is the single device->host copy (the SLAB_IO_BOUNDARY
+        exit)."""
         from ceph_tpu_torch.ops.gf2 import from_packedbit, from_planar
 
+        with self._lock:
+            e = self._entries.get(key)
+            paged = self.device_arm and e is not None and e.dtype == _WORDS
+            if paged:
+                rows, cols, trim = e.rows, e.cols, e.trim
+        if paged:
+            got = self.touch(key)
+            if got is None:
+                return None
+            t0 = time.monotonic()
+            out = self.read_paged(key, 0, rows, got[1], 32 * cols
+                                  if trim is None else trim)
+            if out is not None:
+                self.perf.tinc("pack_s", time.monotonic() - t0)
+            return out
         got = self.get_planar(key)
         if got is None:
             return None

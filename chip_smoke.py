@@ -93,21 +93,37 @@ Phases; any failure exits nonzero before the result line is printed:
                every shard list against the CPU plugin=jerasure; every
                install device-native, 18 evictions;
             b. planar_object_bytes of every object (the 46 residents equal
-               their objects, the evicted ones None; a second read from the
-               memo), planar_rows and planar_shard_bytes, a resident read
-               (memo cleared) in turns with a degraded read through the
-               queue, and object reads after shed_parity;
-            c. a PlanarShardStore: chunks 1, 5, 9 rebuilt from the resident
+               their objects, the evicted ones None; each read one launch
+               of from_packedbit_paged; a second read from the memo),
+               planar_rows and planar_shard_bytes, a resident read (memo
+               cleared) in turns with a degraded read through the queue
+               and in turns with the gather path it replaced (slab_gather,
+               K6, pageable copy, host de-interleave) called by hand, a
+               read's parts, and
+               object reads after shed_parity; slab_gather must not be
+               called by any of the port's reads;
+            c. an admit of one object's 11 shard rows into the paged store
+               (to_packedbit_paged, one launch) read back; a
+               PlanarShardStore: chunks 1, 5, 9 rebuilt from the resident
                planes by apply (K3), and admit (K5) then read (K6);
             d. four w=16 objects through the int8-plane resident lane (K2)
                into a paged store, gathered as int8 planes;
             e. writes installed from a side stream while reads gather in one
                event loop.
-            K2-K6 must each launch.  Then slab_install of 88 pages and
-            slab_gather of 64, against a CPU sub-slab, timed beside a copy
-            of the same bytes (K5 and K6 at the store's shapes are timed in
-            phase 2).  Each line is "store {...}" with the card's name and
-            power limit.
+            K2-K6 and the two paged kernels must each launch.  Then
+            slab_install of 88 pages and slab_gather of 64, against a CPU
+            sub-slab, timed beside a copy of the same bytes; and the paged
+            kernels at the store's shapes (from_packedbit_paged: a [64,
+            16384] object read with cs = 4096 and [88, 16384] shard rows;
+            to_packedbit_paged: an [11, 524288] admit into 88 pages), on
+            pages scattered over two sub-slabs, against their plain
+            versions byte for byte, timed in turns with the composition
+            each replaced (slab_gather and K6; K5, the page image and
+            slab_install),
+            beside a copy of the same bytes and the bound (K5 and K6 at
+            the store's shapes are timed in phase 2), and the host ms of
+            building one resident's page table.  Each line is "store
+            {...}" with the card's name and power limit.
 6. split    host prepare / host->device / kernel call (apply_packedbit,
             the lane's one launch) / device->host of one 4 MiB encode (the
             codec API takes host bytes), and the device's busy share over
@@ -172,6 +188,10 @@ KERNEL_META = {
                      "ceph_tpu/ops/gf2.py:576"),
     "from_packedbit": ("ceph_tpu_torch/ops/csrc/packedbit.cu",
                        "ceph_tpu/ops/gf2.py:584"),
+    "to_packedbit_paged": ("ceph_tpu_torch/ops/csrc/packedbit.cu",
+                           "ceph_tpu/ops/gf2.py:576"),
+    "from_packedbit_paged": ("ceph_tpu_torch/ops/csrc/packedbit.cu",
+                             "ceph_tpu/ops/gf2.py:584"),
 }
 
 
@@ -675,7 +695,9 @@ def _wrappers():
             "xor_schedule": cuda_packedbit.xor_schedule,
             "apply_packedbit": cuda_packedbit.apply_packedbit,
             "to_packedbit": cuda_packedbit.to_packedbit,
-            "from_packedbit": cuda_packedbit.from_packedbit}
+            "from_packedbit": cuda_packedbit.from_packedbit,
+            "to_packedbit_paged": cuda_packedbit.to_packedbit_paged,
+            "from_packedbit_paged": cuda_packedbit.from_packedbit_paged}
 
 
 def _zero_counts() -> None:
@@ -829,6 +851,22 @@ def _uncounted(device):
             fn.launches = saved[name][0]
             if hasattr(fn, "routes"):
                 fn.routes = saved[name][1]
+
+
+@contextlib.contextmanager
+def _counting(module, name: str, calls: list):
+    """Count the calls of module.<name> inside into calls[0]."""
+    real = getattr(module, name)
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    setattr(module, name, counted)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 def _interval_union(spans):
@@ -1235,6 +1273,7 @@ def phase_store(device, card):
     import torch
 
     from ceph_tpu_torch.ops import cuda_packedbit
+    from ceph_tpu_torch.ops import slab as slab_ops
     from ceph_tpu_torch.parallel.service import BatchingQueue, PlanarShardStore
     from ceph_tpu_torch.rados import ecutil
     from ceph_tpu_torch.rados.pagestore import PagedResidentStore
@@ -1250,6 +1289,9 @@ def phase_store(device, card):
     objs = [rng.integers(0, 256, OBJECT_SIZE, dtype=np.uint8).tobytes()
             for _ in range(n)]
     k6 = cuda_packedbit.from_packedbit
+    paged = cuda_packedbit.from_packedbit_paged
+    # slab_gather calls made by the port's resident reads: none
+    read_gathers = [0]
     q = BatchingQueue(device=device, max_delay=WIDE_WINDOW_S)
     store = PagedResidentStore(STORE_BYTES, STORE_PAGE, queue=q, device=device)
     check(store.device_arm, "the paged store is not on its device arm")
@@ -1342,32 +1384,37 @@ def phase_store(device, card):
         resident = [i for i in range(n) if i in store]
         check(len(resident) == fit, f"{len(resident)} residents, not {fit}")
         _forget_memo(store)
-        launches0, d2h0 = k6.launches, store.d2h_gathers
-        for i in range(n):
-            got = ecutil.planar_object_bytes(store, i, 1, k, cs, OBJECT_SIZE)
-            check(got == (objs[i] if i in resident else None),
-                  f"resident read of object {i}")
-        gathers = store.d2h_gathers - d2h0
-        check(gathers == fit and k6.launches - launches0 >= fit,
-              f"{fit} resident reads made {gathers} gathers and "
-              f"{k6.launches - launches0} K6 launches")
-        launches0, d2h0 = k6.launches, store.d2h_gathers
+        launches0, k6_0, d2h0 = paged.launches, k6.launches, store.d2h_gathers
+        with _counting(slab_ops, "slab_gather", read_gathers):
+            for i in range(n):
+                got = ecutil.planar_object_bytes(store, i, 1, k, cs,
+                                                 OBJECT_SIZE)
+                check(got == (objs[i] if i in resident else None),
+                      f"resident read of object {i}")
+        exits = store.d2h_gathers - d2h0
+        check(exits == fit and paged.launches - launches0 == fit
+              and k6.launches == k6_0,
+              f"{fit} resident reads made {exits} device->host exits, "
+              f"{paged.launches - launches0} paged K6 launches and "
+              f"{k6.launches - k6_0} K6 launches")
+        launches0, d2h0 = paged.launches, store.d2h_gathers
         for i in resident:
             check(ecutil.planar_object_bytes(store, i, 1, k, cs, OBJECT_SIZE)
                   == objs[i], f"memo read of object {i}")
-        check(store.d2h_gathers == d2h0 and k6.launches == launches0,
+        check(store.d2h_gathers == d2h0 and paged.launches == launches0,
               "a second read was not served from the memo")
-        for i in resident[:4]:
-            rows = ecutil.planar_rows(store, i, 1)
-            check(rows is not None and all(np.array_equal(a, b)
-                                           for a, b in zip(rows, want[i])),
-                  f"planar_rows of object {i}")
-        for i in resident[4:6]:
-            for shard in range(11):
-                check(ecutil.planar_shard_bytes(store, i, 1, shard)
-                      == np.asarray(want[i][shard]).tobytes(),
-                      f"planar_shard_bytes of object {i} shard {shard}")
-        ms = {"resident": [], "degraded": []}
+        with _counting(slab_ops, "slab_gather", read_gathers):
+            for i in resident[:4]:
+                rows = ecutil.planar_rows(store, i, 1)
+                check(rows is not None and all(
+                    np.array_equal(a, b) for a, b in zip(rows, want[i])),
+                      f"planar_rows of object {i}")
+            for i in resident[4:6]:
+                for shard in range(11):
+                    check(ecutil.planar_shard_bytes(store, i, 1, shard)
+                          == np.asarray(want[i][shard]).tobytes(),
+                          f"planar_shard_bytes of object {i} shard {shard}")
+        ms = {"resident": [], "degraded": [], "gather": []}
         blobs = {i: {c: s for c, s in enumerate(want[i]) if c not in LOST}
                  for i in resident}
 
@@ -1376,13 +1423,34 @@ def phase_store(device, card):
                 codec, sinfo, blobs[i], OBJECT_SIZE, queue=q)
                 for i in resident))
 
-        for arm in ("resident", "degraded", "degraded", "resident"):
+        def resident_reads():
+            with _counting(slab_ops, "slab_gather", read_gathers):
+                return [ecutil.planar_object_bytes(store, i, 1, k, cs,
+                                                   OBJECT_SIZE)
+                        for i in resident]
+
+        def gather_reads():
+            # the gather path the paged read replaced: with read_paged
+            # shadowed, ecutil gathers the rows, runs K6, copies them to
+            # pageable memory and de-interleaves them on the host
+            # (launches uncounted)
+            store.read_paged = None
+            try:
+                with _uncounted(device):
+                    return [ecutil.planar_object_bytes(store, i, 1, k, cs,
+                                                       OBJECT_SIZE)
+                            for i in resident]
+            finally:
+                del store.read_paged
+
+        for arm in ("resident", "degraded", "degraded", "resident",
+                    "resident", "gather", "gather", "resident"):
             _forget_memo(store)
             t0 = time.perf_counter()
             if arm == "resident":
-                got = [ecutil.planar_object_bytes(store, i, 1, k, cs,
-                                                  OBJECT_SIZE)
-                       for i in resident]
+                got = resident_reads()
+            elif arm == "gather":
+                got = gather_reads()
             else:
                 got = asyncio.run(degraded())
             ms[arm].append((time.perf_counter() - t0) * 1e3 / fit)
@@ -1395,16 +1463,38 @@ def phase_store(device, card):
                   f"planar_rows served a shed resident {i}")
             check(ecutil.planar_object_bytes(store, i, 1, k, cs, OBJECT_SIZE)
                   == objs[i], f"read of object {i} after its parity shed")
+        check(read_gathers[0] == 0,
+              f"the resident reads called slab_gather {read_gathers[0]} times")
         emit("reads", resident=fit, evicted=n - fit,
-             resident_read_ms_an_object_turns=ms["resident"],
+             resident_read_ms_an_object_turns=ms["resident"][:2],
              degraded_read_ms_an_object_turns=ms["degraded"],
+             paged_read_ms_an_object_turns=ms["resident"][2:],
+             gather_read_ms_an_object_turns=ms["gather"],
              lost=list(LOST), planar_rows=4, planar_shard_bytes=2,
-             parity_sheds=4)
+             parity_sheds=4, slab_gather_calls_on_reads=read_gathers[0])
 
-        # 3. resident decode (K3 through the queue) and admit (K5) / read
+        # 3. an admit into the paged store (the paged K5) read back; a
+        # resident decode (K3 through the queue) and admit (K5) / read
         # (K6) on the monolithic store
-        pss = PlanarShardStore(STORE_BYTES, queue=q, device=device)
         i = resident[0]
+        rows = np.stack(want[i])
+        k5p, installs = cuda_packedbit.to_packedbit_paged.launches, \
+            store.device_installs
+        check(store.admit("admitted", rows, layout="packedbit",
+                          meta=(1, rows.shape[1], OBJECT_SIZE)),
+              "the paged store refused an admit")
+        check(cuda_packedbit.to_packedbit_paged.launches == k5p + 1
+              and store.device_installs == installs + 1,
+              "the admit was not one paged K5 launch and one device install")
+        check(np.array_equal(store.read("admitted"), rows),
+              "paged admit then read differs")
+        check(ecutil.planar_object_bytes(store, "admitted", 1, k, cs,
+                                         OBJECT_SIZE) == objs[i],
+              "paged admit then object read differs")
+        store.drop("admitted")
+        emit("paged admit", admitted=list(rows.shape), pages=obj_pages,
+             read_back=True)
+        pss = PlanarShardStore(STORE_BYTES, queue=q, device=device)
         product = asyncio.run(ecutil.planar_encode_async(codec, sinfo,
                                                          objs[i], queue=q))
         _, bits, n_rows, n_cols, _ = product
@@ -1422,7 +1512,6 @@ def phase_store(device, card):
         for j, c in enumerate(LOST):
             check(np.array_equal(rebuilt[j, :n_cols], want[i][c]),
                   f"resident decode rebuilt chunk {c} wrong")
-        rows = np.stack(want[i])
         k5 = cuda_packedbit.to_packedbit.launches
         pss.admit("admitted", rows, layout="packedbit")
         check(cuda_packedbit.to_packedbit.launches == k5 + 1,
@@ -1487,9 +1576,10 @@ def phase_store(device, card):
             for _ in range(3):
                 await asyncio.sleep(0)
                 _forget_memo(store, [j])
-                check(ecutil.planar_object_bytes(store, j, 1, k, cs,
-                                                 OBJECT_SIZE) == objs[j],
-                      f"concurrent read of object {j}")
+                with _counting(slab_ops, "slab_gather", read_gathers):
+                    got = ecutil.planar_object_bytes(store, j, 1, k, cs,
+                                                     OBJECT_SIZE)
+                check(got == objs[j], f"concurrent read of object {j}")
 
         async def mixed():
             await asyncio.gather(*(write(j) for j in writers),
@@ -1500,6 +1590,7 @@ def phase_store(device, card):
             check(ecutil.planar_object_bytes(store, ("mixed", j), 1, k, cs,
                                              OBJECT_SIZE) == objs[j],
                   f"read after a side-stream install of object {j}")
+        check(read_gathers[0] == 0, "a concurrent read called slab_gather")
         emit("concurrent", writes=len(writers), reads=3 * len(readers),
              install_stream="side", read_stream="current")
         d = store.perf.dump()
@@ -1512,41 +1603,61 @@ def phase_store(device, card):
         q.close()
     counts, _ = _read_counts(device, "(store)")
     for name in ("gf2_matmul", "xor_schedule", "apply_packedbit",
-                 "to_packedbit", "from_packedbit"):
+                 "to_packedbit", "from_packedbit", "to_packedbit_paged",
+                 "from_packedbit_paged"):
         check(counts[name] > 0, f"{name} never launched in the store run")
+    emit("slab_gather on reads", calls=read_gathers[0])
     _time_slab_ops(device, emit)
-    return counts
+    return counts, _time_paged_kernels(device, emit, obj_pages)
 
 
 def _read_parts(device, store, keys, k: int, cs: int) -> dict:
     """Host milliseconds, medians over `keys`, of a resident read's parts,
-    each ended by a synchronize so that it holds its device work: the
-    gather of the data rows from the pages, K6 on them, the device->host
-    copy of the bytes, and the host's de-interleave into the object.  The
-    launches are not counted."""
+    each ended by a synchronize so that it holds its device work: the paged
+    K6 from the pages to the object's stripe-major bytes, the copy into
+    pinned memory, and the bytes made from it; then, on the same residents,
+    the parts of the gather path it replaced: the gather of the data rows
+    from the pages, K6 on them, the pageable device->host copy of the
+    bytes, and the host's de-interleave into the object.  The launches are
+    not counted."""
+    import torch
+
+    from ceph_tpu_torch.ops.cuda_packedbit import from_packedbit_paged
     from ceph_tpu_torch.ops.gf2 import from_packedbit
 
-    parts = {"gather_ms": [], "k6_ms": [], "d2h_ms": [],
+    parts = {"paged_k6_ms": [], "pinned_d2h_ms": [], "bytes_ms": [],
+             "gather_ms": [], "k6_ms": [], "d2h_ms": [],
              "de_interleave_ms": []}
     with _uncounted(device):
         for key in keys:
             _, _, meta = store.entry_info(key)
             L, size = meta[1], meta[2]
-            t0 = time.perf_counter()
+            with store._lock:
+                e = store._entries[key]
+                table, cols = e.table, e.cols
+            t = [time.perf_counter()]
+            out = from_packedbit_paged(table, 0, cols, k, L, cs, size)
+            sync(device)
+            t.append(time.perf_counter())
+            host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            sync(device)
+            t.append(time.perf_counter())
+            data = host.numpy().tobytes()
+            t.append(time.perf_counter())
             bits = store.gather_rows(key, 0, k * 8)
             sync(device)
-            t1 = time.perf_counter()
+            t.append(time.perf_counter())
             out = from_packedbit(bits, k)
             sync(device)
-            t2 = time.perf_counter()
+            t.append(time.perf_counter())
             rows = out[:, :L].cpu().numpy()
-            t3 = time.perf_counter()
-            data = rows.reshape(k, L // cs, cs).transpose(1, 0, 2).reshape(
+            t.append(time.perf_counter())
+            old = rows.reshape(k, L // cs, cs).transpose(1, 0, 2).reshape(
                 -1)[:size].tobytes()
-            t4 = time.perf_counter()
-            check(len(data) == size, f"read parts of {key}")
-            for name, (a, b) in zip(parts, ((t0, t1), (t1, t2), (t2, t3),
-                                            (t3, t4))):
+            t.append(time.perf_counter())
+            check(len(data) == size and old == data, f"read parts of {key}")
+            for name, a, b in zip(parts, t, t[1:]):
                 parts[name].append((b - a) * 1e3)
     return {"objects": len(keys),
             **{name: statistics.median(v) for name, v in parts.items()}}
@@ -1587,6 +1698,128 @@ def _time_slab_ops(device, emit) -> None:
              copy_ms=time_ms(lambda: dst.copy_(src), TIMING_REPS),
              bound_ms=2 * nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
         del src, dst
+
+
+def _time_paged_kernels(device, emit, obj_pages: int) -> dict:
+    """The page-addressed kernels at the store's shapes: from_packedbit_paged
+    as an object read ([64, 16384] words, cs = STRIPE_UNIT) and as shard
+    rows ([88, 16384]), to_packedbit_paged as an admit ([11, 524288] bytes
+    into 88 pages).  Each is held against its plain version byte for byte
+    on one object's pages scattered over two sub-slabs of random words in
+    random order, then timed (CUDA-event medians, L2 flushed) on pages laid
+    out as the store lays out a resident that crosses into a second
+    sub-slab, in turns with the composition it replaced on the same pages
+    (slab_gather and K6, the object's de-interleave then being the host's;
+    K5, the zero-filled page image, the copy into it and slab_install),
+    beside the kernel on the scattered pages, its plain version, a copy of
+    the same bytes and the bound; then the host ms of building one
+    resident's page table.  Returns the report rows (the object read stands for the paged
+    K6).  The launches are not counted."""
+    import torch
+
+    from ceph_tpu_torch.ops import cuda_packedbit as pb
+    from ceph_tpu_torch.ops.slab import (PageTable, gather_words,
+                                         install_pages, new_subslab)
+
+    words = STORE_PAGE // 4
+    rng = np.random.default_rng(SEED + 6)
+    slabs = {}
+    for s in range(2):
+        slabs[s] = new_subslab(256, words, torch.device(device))
+        slabs[s].copy_(torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (256, words), dtype=np.int64).astype(np.int32)))
+    scattered = PageTable(rng.permutation(512)[:obj_pages], slabs, words, 8)
+    tidy = PageTable(range(256 - obj_pages // 2, 256 + obj_pages - obj_pages // 2),
+                     slabs, words, 8)
+    L = OBJECT_SIZE // 8
+    W = L // 32
+    data = torch.from_numpy(rng.integers(0, 256, (11, L), dtype=np.uint8)
+                            ).to(device)
+    rows = {}
+
+    def report(name, label, kernel, plain, composition, n_bytes, n_pages,
+               result):
+        """kernel(table) / plain(table) compute the function on a table's
+        pages; result(table, out) is what to compare.  n_bytes is the bytes
+        read and written, n_pages the page addresses read: the bound counts
+        both, the copy the bytes."""
+        twin = PageTable(scattered.pages, {s: t.clone() for s, t in
+                                           slabs.items()}, words, 8)
+        got = result(scattered, kernel(scattered))
+        want = result(twin, plain(twin))
+        sync(device)
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} {label}: {tuple(got.shape)} against {tuple(want.shape)}")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0, f"{name} {label}: max_abs_err {err}")
+        del twin, got, want
+        turns = {"kernel": [], "composition": []}
+        for arm in ("kernel", "composition", "composition", "kernel"):
+            turns[arm].append(time_ms(
+                lambda: (kernel if arm == "kernel" else composition)(tidy),
+                TIMING_REPS))
+        src = torch.empty(n_bytes // 2, dtype=torch.uint8, device=device)
+        dst = torch.empty_like(src)
+        b_ms, b_by = xor_bound(n_bytes + 8 * n_pages, 0)
+        line = {"kernel": name, "path": "cuda", "shape": label,
+                "max_abs_err": err, "ms": statistics.mean(turns["kernel"]),
+                "ms_turns": turns["kernel"],
+                "scattered_ms": time_ms(lambda: kernel(scattered),
+                                        TIMING_REPS),
+                "composition_ms": statistics.mean(turns["composition"]),
+                "composition_ms_turns": turns["composition"],
+                "copy_ms": time_ms(lambda: dst.copy_(src), TIMING_REPS),
+                "plain_ms": time_ms(lambda: plain(tidy), PLAIN_REPS),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del src, dst
+        emit("paged kernel", **line)
+        return line
+
+    def out(table, got):
+        return got
+
+    # the object read: 8 data rows' 64 plane rows -> the 4 MiB object
+    obj = (0, W, 8, L, STRIPE_UNIT, OBJECT_SIZE)
+    rows["from_packedbit_paged"] = report(
+        "from_packedbit_paged", f"[64,{W}] object cs={STRIPE_UNIT}",
+        lambda t: pb.from_packedbit_paged(t, *obj),
+        lambda t: pb.from_packedbit_paged_plain(t, *obj),
+        lambda t: pb.from_packedbit(gather_words(t, 0, 64 * W)
+                                    .view(64, W), 8),
+        64 * W * 4 + OBJECT_SIZE, -(-64 * W // words), out)
+    # shard rows: all 11 rows of the object
+    report("from_packedbit_paged", f"[88,{W}] rows",
+           lambda t: pb.from_packedbit_paged(t, 0, W, 11, L),
+           lambda t: pb.from_packedbit_paged_plain(t, 0, W, 11, L),
+           lambda t: pb.from_packedbit(gather_words(t, 0, 88 * W)
+                                       .view(88, W), 11),
+           88 * W * 4 + 11 * L, obj_pages, out)
+
+    # the admit: 11 shard rows into the object's 88 pages
+    def image_admit(t):
+        planes = pb.to_packedbit(data)
+        image = torch.zeros(obj_pages * words, dtype=torch.int32,
+                            device=device)
+        image[:planes.numel()].view(planes.shape).copy_(planes)
+        install_pages(t, image.view(obj_pages, words))
+
+    rows["to_packedbit_paged"] = report(
+        "to_packedbit_paged", f"[11,{L}] into {obj_pages} pages",
+        lambda t: pb.to_packedbit_paged(data, t),
+        lambda t: pb.to_packedbit_paged_plain(data, t), image_admit,
+        11 * L + obj_pages * words * 4, obj_pages,
+        lambda t, _: torch.stack([t.slabs[0], t.slabs[1]]))
+    # what an install now adds: building a resident's page table (its
+    # pages' addresses, copied to the card), host ms, medians
+    build_ms = []
+    for _ in range(TIMING_REPS):
+        t0 = time.perf_counter()
+        PageTable(tidy.pages, slabs, words, 8)
+        sync(device)
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+    emit("page table", pages=obj_pages, build_ms=statistics.median(build_ms))
+    del scattered, tidy, slabs, data
+    return rows
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -1674,8 +1907,10 @@ def main() -> int:
         counts, routes = phase_main("cuda")
         for name, n in phase_queue("cuda", card).items():
             counts[name]["queue"] = n
-        for name, n in phase_store("cuda", card).items():
+        store_counts, paged_rows = phase_store("cuda", card)
+        for name, n in store_counts.items():
             counts[name]["store"] = n
+        rows.update(paged_rows)
         phase_split("cuda")
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():
@@ -1696,7 +1931,9 @@ def main() -> int:
                 row.update(paths=routes[name],
                            popc_ms=rows[name + ".popc"]["ms"])
             row.update({key: rows[name][key] for key in
-                        ("groups", "steps", "warps_per_sm", "words")
+                        ("groups", "steps", "warps_per_sm", "words",
+                         "ms_turns", "scattered_ms", "composition_ms",
+                         "copy_ms")
                         if key in rows[name]})
             if name == "apply_packedbit":
                 row.update(ms_turns=rows[name]["ms_turns"],

@@ -19,6 +19,7 @@ from ceph_tpu_torch.ec.plugins.cuda import CudaPlugin
 from ceph_tpu_torch.ec.plugins.jerasure import JerasurePlugin
 from ceph_tpu_torch.ops import cuda_gf2, cuda_packedbit
 from ceph_tpu_torch.ops import gf2 as port_gf2
+from ceph_tpu_torch.ops.slab import PageTable, new_subslab
 from ceph_tpu_torch.parallel.service import BatchingQueue
 from ceph_tpu_torch.rados import ecutil
 from ceph_tpu_torch.rados.pagestore import PagedResidentStore
@@ -414,10 +415,11 @@ def test_device_arm_store_on_the_card_matches_the_host_arm(card):
         log = []
         for i, rows in enumerate(objs):
             log.append(st.admit(f"o{i}", rows, layout="packedbit",
-                                meta=(i,)) is not None)
-            log.append(st.put_planar(f"o{i}", st.admit(
-                f"t{i}", rows, layout="packedbit"), w=8, n_rows=6,
-                meta=(i,), trim=rows.shape[1], data_rows=32))
+                                meta=(i,)))
+            st.admit(f"t{i}", rows, layout="packedbit")
+            log.append(st.put_planar(f"o{i}", st.peek(f"t{i}")[0], w=8,
+                                     n_rows=6, meta=(i,), trim=rows.shape[1],
+                                     data_rows=32))
         for i in range(len(objs)):
             got = st.read(f"o{i}")
             log.append(None if got is None else got.tobytes())
@@ -484,4 +486,62 @@ def test_install_of_a_queue_product_while_the_next_round_runs(card):
             assert np.array_equal(a, np.asarray(b))
     assert store.device_installs == len(bufs) and store.h2d_installs == 0
     assert q.dispatches < len(bufs)
+    torch.cuda.synchronize()
+
+
+def _scattered_table(card, rng, page_words, n_pages):
+    """n_pages of random words scattered over two CUDA sub-slabs in random
+    order, and the same table over CPU copies of the sub-slabs."""
+    host = {s: torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, (256, page_words), dtype=np.int64).astype(np.int32))
+        for s in range(2)}
+    pages = rng.permutation(512)[:n_pages]
+    dev = {s: new_subslab(256, page_words, card) for s in host}
+    for s, t in host.items():
+        dev[s].copy_(t)
+    return (PageTable(pages, dev, page_words, 8),
+            PageTable(pages, host, page_words, 8))
+
+
+@pytest.mark.parametrize("page_words,row_words,L,cs", [
+    (16384, 16384, 524288, 4096),   # the OSD's object read
+    (16384, 16384, 524288, 0),      # its shard rows
+    (64, 15, 480, 160),             # rows straddling pages, mid-page start
+    (64, 10, 300, 100),             # chunks that end mid-word
+    (100, 7, 200, 0),               # pages that are not a power of two
+    (16, 40, 1280, 128),            # a plane row longer than two pages
+])
+def test_from_packedbit_paged_matches_plain(card, page_words, row_words, L,
+                                            cs):
+    rng = np.random.default_rng(page_words + row_words + L)
+    out_rows = 8
+    w0 = 3 * row_words
+    words = w0 + out_rows * 8 * row_words
+    dev, host = _scattered_table(card, rng, page_words,
+                                 -(-words // page_words))
+    limits = (out_rows * L, out_rows * L - 333) if cs else (0,)
+    for limit in limits:
+        got = cuda_packedbit.from_packedbit_paged(dev, w0, row_words,
+                                                  out_rows, L, cs, limit)
+        want = cuda_packedbit.from_packedbit_paged(host, w0, row_words,
+                                                   out_rows, L, cs, limit)
+        assert torch.equal(got.cpu(), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,B,page_words", [
+    (11, 524288, 16384),   # the OSD's admit: 88 whole pages
+    (3, 1000, 64),         # a ragged last page
+    (5, 4097, 100),        # misaligned rows, pages of 100 words
+])
+def test_to_packedbit_paged_matches_plain(card, n, B, page_words):
+    rng = np.random.default_rng(n * B)
+    words = n * 8 * -(-B // 32)
+    dev, host = _scattered_table(card, rng, page_words,
+                                 -(-words // page_words))
+    data = rng.integers(0, 256, (n, B), dtype=np.uint8)
+    cuda_packedbit.to_packedbit_paged(on(card, data), dev)
+    cuda_packedbit.to_packedbit_paged(torch.from_numpy(data), host)
+    for s in range(2):
+        assert torch.equal(dev.slabs[s].cpu(), host.slabs[s])
     torch.cuda.synchronize()
