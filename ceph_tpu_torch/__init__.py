@@ -9,11 +9,16 @@ its own copies.  The device work is the bit-plane GF(2) matmul of
 (``ceph_tpu_torch/ops/csrc/gf2.cu``), registered as ``plugin=cuda``.
 
 Layout:
-  ceph_tpu_torch.ec      codec interface, registry, GF math, jerasure + cuda plugins
-  ceph_tpu_torch.ops     bit-plane GF(2) lane (gf2.py) and its CUDA kernels
-  ceph_tpu_torch.tools   ceph_erasure_code_benchmark-style CLI
-  ceph_tpu_torch.utils   device resolution
-  ceph_tpu_torch.common  perf counters
+  ceph_tpu_torch.ec        codec interface, registry, GF math, jerasure + cuda plugins
+  ceph_tpu_torch.ops       bit-plane GF(2) lanes (gf2.py), slab ops and their CUDA kernels
+  ceph_tpu_torch.parallel  the stripe-batching queue and PlanarShardStore
+  ceph_tpu_torch.rados     mini-RADOS: mon, OSD, client, vstart, messenger, stores,
+                           ecutil and the paged resident store
+  ceph_tpu_torch.services  object classes (cls)
+  ceph_tpu_torch.tools     ceph_erasure_code_benchmark-style CLI, walk_split
+  ceph_tpu_torch.utils     device resolution, checksum (crc32c), wirepath
+  ceph_tpu_torch.common    config, context, logging, admin socket, tracing,
+                           op tracking, throttles, perf counters
 
 Entry points run on the CUDA device unless the caller names the CPU.
 """

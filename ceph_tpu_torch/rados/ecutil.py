@@ -2,7 +2,8 @@
 src/osd/ECUtil.{h,cc}).
 
 Copy of ceph_tpu/rados/ecutil.py:33-715 at commit 645aba9, on the port's
-modules, without ``HashInfo`` (it needs a native crc32c).
+modules; ``HashInfo`` (ecutil.py:90-131 at commit 4ac5bd2) chains the port's
+checksum (``utils/checksum.py``, crc32c from its own build).
 
 `StripeInfo` is the reference's ``ECUtil::stripe_info_t`` (ECUtil.h:27-80):
 an object is logically striped in ``stripe_width = k * chunk_size`` units;
@@ -28,6 +29,7 @@ PagedResidentStore, and serve reads and recovery rows from them.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -98,6 +100,50 @@ class StripeInfo:
             # tails pay this)
             data = bytes(data)
         return data + b"\x00" * (want - len(data))
+
+
+class HashInfo:
+    """Cumulative per-shard crc32s, chained across appends (ECUtil.h:101).
+
+    ``dirty`` marks a record whose non-self entries went stale: a partial
+    (spliced) overwrite rewrites one shard's bytes without the primary
+    holding every other shard's blob, so each shard refreshes only its OWN
+    crc entry.  Deep scrub always trusts the self entry; cross-shard
+    comparison is only meaningful while the record is clean (the reference
+    sidesteps this by disabling hinfo under ec_overwrites)."""
+
+    XATTR_KEY = "hinfo_key"
+
+    def __init__(self, n_shards: int, total_chunk_size: int = 0,
+                 crcs: Optional[List[int]] = None, dirty: bool = False):
+        self.total_chunk_size = total_chunk_size
+        self.crcs = list(crcs) if crcs else [0] * n_shards
+        self.dirty = dirty
+
+    def append(self, shard_chunks: Dict[int, bytes]) -> None:
+        """Fold the NEW chunk bytes of one append into each shard's
+        running crc (crc32 chaining, as the reference's bufferlist crc32c
+        cumulative update does)."""
+        from ceph_tpu_torch.utils.checksum import checksum
+
+        sizes = {len(c) for c in shard_chunks.values()}
+        assert len(sizes) == 1, "appends must be chunk-aligned and equal"
+        for shard, chunk in shard_chunks.items():
+            self.crcs[shard] = checksum(chunk, self.crcs[shard])
+        self.total_chunk_size += sizes.pop()
+
+    def shard_crc(self, shard: int) -> int:
+        return self.crcs[shard]
+
+    def encode(self) -> bytes:
+        return json.dumps({"total_chunk_size": self.total_chunk_size,
+                           "crcs": self.crcs, "dirty": self.dirty}).encode()
+
+    @classmethod
+    def decode(cls, blob: bytes) -> "HashInfo":
+        d = json.loads(blob)
+        return cls(len(d["crcs"]), d["total_chunk_size"], d["crcs"],
+                   d.get("dirty", False))
 
 
 def concat_safe(codec) -> bool:

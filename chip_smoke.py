@@ -6,8 +6,9 @@
 Phases; any failure exits nonzero before the result line is printed:
 
 1. build    nvcc builds every kernel library from ceph_tpu_torch/ops/csrc
-            (one nvcc per source, all started together); seconds and ptxas
-            register/spill lines are printed.
+            (one nvcc per source, all started together) and g++ the port's
+            crc32c library beside them; seconds and ptxas register/spill
+            lines are printed.
 2. kernels  each kernel against its plain PyTorch version on the card, byte
             for byte, at the main path's shapes, at 2 MiB of columns, and at
             ragged, misaligned and wide shapes; CUDA-event medians with the
@@ -124,13 +125,44 @@ Phases; any failure exits nonzero before the result line is printed:
             the store's shapes are timed in phase 2), and the host ms of
             building one resident's page table.  Each line is "store
             {...}" with the card's name and power limit.
-6. split    host prepare / host->device / kernel call (apply_packedbit,
+6. osd      the OSD daemon path: an in-process vstart cluster of one mon
+            and 12 OSDs (MemStore) at the default EC device conf (batching
+            on, residency on, a 256 MiB paged store of 64 KiB pages on its
+            device arm, the 2 ms window), one plugin=cuda reed_sol_van k=8
+            m=3 pool, every launch count set to 0 just before and read just
+            after (the "osd" run):
+            a. 64 seeded 4 MiB puts, 8 in flight; every object's 11 stored
+               shards and HashInfo against the CPU plugin=jerasure through
+               ecutil.batched_encode; objects/s, GB/s, client ms p50/p99,
+               the primaries' write ops step by step (p50/p99 µs of the
+               gap between adjacent events of their timelines), and the
+               device's busy share (torch.profiler) over 16 of the
+               objects put again;
+            b. every object read back byte for byte: GB/s, ms p50/p99, how
+               many were served from residents and how many shard sub-reads
+               were made, and the read ops step by step;
+            c. the OSD in the most PGs' acting sets killed and marked down,
+               every object read again (degraded): GB/s, ms p50/p99, and
+               the read ops step by step;
+            d. repair_pool (recovery is left to it: osd_auto_repair off)
+               until every object has its 11 shards again, seconds and
+               bytes pushed; a second OSD killed, every object read again;
+            e. the ec_cuda, ec_plugin, gf2_sched and pagestore counters,
+               the osd and tier counters summed over the 12 OSDs, and the
+               op tracker's phase percentiles over the live OSDs.
+            The queue and the store must be on the card, the plugin's
+            cpu_fallback and device_failed and the queue's breaker_fallback
+            0, apply_packedbit (K4) and from_packedbit_paged must launch and
+            the store must count device installs.  The queue and store are
+            one per process, shared by the 12 OSDs.  Each line is "osd
+            {...}" with the card's name and power limit.
+7. split    host prepare / host->device / kernel call (apply_packedbit,
             the lane's one launch) / device->host of one 4 MiB encode (the
             codec API takes host bytes), and the device's busy share over
             back-to-back encodes from torch.profiler.
-7. report   the card, one {"kernels": [...]} line (each row's "launches" is
-            the sum of its counts in phases 3, 4 and 5, "launches_by_run" the
-            five runs), and the result line.
+8. report   the card, one {"kernels": [...]} line (each row's "launches" is
+            the sum of its counts in phases 3, 4, 5 and 6, "launches_by_run"
+            the six runs), and the result line.
 """
 
 from __future__ import annotations
@@ -266,12 +298,27 @@ def sync(device) -> None:
 # ---------------------------------------------------------------- phase 1 --
 
 def phase_build() -> None:
+    import threading
+
     from ceph_tpu_torch.ops import build
+    from ceph_tpu_torch.utils import checksum
 
     t0 = time.perf_counter()
+    crc_s = []
+
+    def build_crc():  # g++ of the crc32c library beside the nvcc builds
+        checksum.build()
+        crc_s.append(time.perf_counter() - t0)
+
+    crc = threading.Thread(target=build_crc)
+    crc.start()
     results = build.build_all()
+    crc.join()
+    check(checksum.checksum_kind() == "crc32c",
+          "the port's crc32c library did not build")
     print(f"build: {time.perf_counter() - t0:.2f}s total "
-          f"({', '.join(f'{n} {s:.2f}s' for n, (s, _) in results.items())})")
+          f"({', '.join(f'{n} {s:.2f}s' for n, (s, _) in results.items())}"
+          f", crc32c {crc_s[0] if crc_s else float('nan'):.2f}s)")
     for name, (_, log) in results.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -1878,6 +1925,278 @@ def phase_split(device) -> None:
                                          key=lambda kv: -kv[1])[:6])}))
 
 
+# -------------------------------------------------------------- phase osd --
+
+OSD_COUNT = 12       # 11 hold a k=8 m=3 object's shards, one is left to recover on
+OSD_IN_FLIGHT = 8    # client ops in flight
+OSD_PG_NUM = 16
+
+
+def _pcts(samples_ms):
+    """p50 and p99 of a list of milliseconds."""
+    a = np.asarray(samples_ms, dtype=np.float64)
+    return {"p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99))}
+
+
+def _summed(perf_sets):
+    """The plain counters of several daemons' sets of one name, summed."""
+    out = collections.Counter()
+    for perf in perf_sets:
+        for name, value in perf.dump().items():
+            if isinstance(value, (int, float)):
+                out[name] += value
+    return dict(out)
+
+
+def _op_step_gaps(osds, kind: str, seen: set):
+    """p50/p99 µs of each step of the OSDs' client ops of one kind ("write"
+    or "read") that finished since the last call (`seen` holds the ops
+    already counted): the gap between each adjacent pair of events of an
+    op's timeline (a primary's write: queued_for_pg, reached_pg,
+    ec_encode_dispatched, encoded, sub_writes_sent, waiting_for_subops,
+    commit_gathered, commit_sent, done), over every OSD's historic ops."""
+    gaps = collections.defaultdict(list)
+    for osd in osds:
+        for op in osd.ctx.op_tracker.dump_historic_ops()["ops"]:
+            if not op["description"].startswith(f"osd_op({kind} ") \
+                    or (id(osd), op["seq"]) in seen:
+                continue
+            seen.add((id(osd), op["seq"]))
+            prev, t_prev = "initiated", op["initiated_at"]
+            for e in op["type_data"]["events"]:
+                gaps[f"{prev}->{e['event']}"].append(
+                    (e["time"] - t_prev) * 1e6)
+                prev, t_prev = e["event"], e["time"]
+    return {name: {"p50_us": float(np.percentile(v, 50)),
+                   "p99_us": float(np.percentile(v, 99)), "count": len(v)}
+            for name, v in gaps.items()}
+
+
+def phase_osd(device, card, n_objects=QUEUE_OBJECTS, store_bytes=STORE_BYTES):
+    """The OSD daemon path: an in-process vstart cluster of one mon and
+    OSD_COUNT OSDs on MemStore, at the default EC device conf (batching on,
+    residency on, the paged store's device arm at 256 MiB of 64 KiB pages,
+    the 2 ms window), one plugin=cuda reed_sol_van k=8 m=3 pool, 4 MiB
+    objects.  Writes, reads, degraded reads after one OSD is lost, and a
+    repair followed by a second loss; every read byte for byte, every
+    stored shard and HashInfo against the CPU plugin=jerasure.  Recovery
+    is left to repair_pool (osd_auto_repair off) so that its time is its
+    own.  The queue and the store are one per process, shared by the OSDs,
+    as in any in-process cluster.  Returns each kernel's launch count in
+    this run.  `store_bytes` is the resident store's budget
+    (osd_ec_planar_bytes; the default is the OSD's own, 256 MiB)."""
+    import asyncio
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.ec.plugins.cuda import PLUGIN_PERF
+    from ceph_tpu_torch.ops.gf2 import SCHED_PERF
+    from ceph_tpu_torch.rados import ecutil
+    from ceph_tpu_torch.rados import osd as osdmod
+    from ceph_tpu_torch.rados.crush import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.rados.vstart import Cluster
+
+    def emit(step, **numbers):
+        print("osd " + json.dumps({"step": step, **numbers,
+                                   "store_bytes": store_bytes, "card": card}))
+
+    cpu = _codec("jerasure", "cpu", technique="reed_sol_van", k=8, m=3)
+    rng = np.random.default_rng(SEED + 10)
+    objects = {f"osd-{i}": rng.integers(0, 256, OBJECT_SIZE,
+                                        dtype=np.uint8).tobytes()
+               for i in range(n_objects)}
+    total = OBJECT_SIZE * n_objects
+    conf = {"osd_ec_device": str(device), "osd_auto_repair": False,
+            "client_op_timeout": 60.0, "osd_op_history_size": 4096,
+            "osd_ec_planar_bytes": store_bytes}
+
+    async def timed_ops(fn):
+        """fn(oid) for every object, OSD_IN_FLIGHT at a time; returns the
+        results in order, the wall seconds and each op's ms."""
+        gate = asyncio.Semaphore(OSD_IN_FLIGHT)
+        lat = []
+
+        async def one(oid):
+            async with gate:
+                t = time.perf_counter()
+                out = await fn(oid)
+                lat.append((time.perf_counter() - t) * 1e3)
+                return out
+
+        t0 = time.perf_counter()
+        out = await asyncio.gather(*(one(oid) for oid in objects))
+        return out, time.perf_counter() - t0, lat
+
+    def live_shards(cluster, pool):
+        held = collections.defaultdict(set)
+        for osd in cluster.osds.values():
+            for oid, shard in osd.store.list_objects(pool):
+                if shard < osdmod.PREV_SLOT:
+                    held[oid].add(shard)
+        return held
+
+    async def read_all(client, pool, step):
+        got, wall, lat = await timed_ops(lambda oid: client.get(pool, oid))
+        for oid, data in zip(objects, got):
+            check(data == objects[oid], f"osd {step}: {oid} read back wrong")
+        return wall, lat
+
+    def osd_sum(cluster, name):
+        return sum(o.perf.get(name) for o in cluster.osds.values())
+
+    async def run():
+        cluster = Cluster(n_osds=OSD_COUNT, conf=dict(conf))
+        await cluster.start()
+        client = await cluster.client()
+        try:
+            queue, store = osdmod._BATCH_QUEUE, osdmod._PLANAR_STORE
+            check(queue is not None and queue.device.type == "cuda",
+                  f"the OSDs' queue is not on the card: {queue}")
+            check(store is not None and store.device.type == "cuda"
+                  and store.device_arm,
+                  "the OSDs' resident store is not on the card's device arm")
+            pool = await client.create_pool(
+                "osdphase", "ec", pg_num=OSD_PG_NUM, profile={
+                    "plugin": "cuda", "technique": "reed_sol_van",
+                    "k": "8", "m": "3"})
+            # a. writes
+            _, wall, lat = await timed_ops(
+                lambda oid: client.put(pool, oid, objects[oid]))
+            emit("writes", objects=n_objects, in_flight=OSD_IN_FLIGHT,
+                 objects_per_s=n_objects / wall, GB_per_s=total / wall / 1e9,
+                 wall_s=wall, **_pcts(lat))
+            osds = list(cluster.osds.values())
+            seen = set()
+            emit("write steps", **_op_step_gaps(osds, "write", seen))
+            # the device's busy share over puts: a quarter of the objects
+            # put again, same bytes, under the profiler
+            again = list(objects)[:n_objects // 4]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                await asyncio.gather(*(client.put(pool, oid, objects[oid])
+                                       for oid in again))
+                sync(device)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            on_card = sum(e.self_device_time_total / 1e3
+                          for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+            emit("writes profiled", objects=len(again), wall_ms=wall_ms,
+                 device_ms=on_card, device_busy_share=on_card / wall_ms)
+            sinfo = osds[0]._sinfo(client.osdmap.pools[pool])
+            for oid, data in objects.items():
+                want = ecutil.batched_encode(cpu, sinfo, data)
+                hinfo = ecutil.HashInfo(11)
+                hinfo.append({c: bytes(want[c]) for c in range(11)})
+                seen = set()
+                for osd in osds:
+                    for c in range(11):
+                        got = osd.store.read((pool, oid, c))
+                        if got is None:
+                            continue
+                        seen.add(c)
+                        check(bytes(got[0]) == bytes(want[c]),
+                              f"osd {oid} shard {c} on osd.{osd.osd_id} "
+                              "differs from the CPU plugin=jerasure")
+                        check(osd.store.getattr((pool, oid, c), "hinfo_key")
+                              == hinfo.encode(),
+                              f"osd {oid} shard {c}: HashInfo differs")
+                check(seen == set(range(11)), f"osd {oid} stored {seen}")
+            emit("shards", objects=n_objects, shards_checked=11 * n_objects,
+                 shard_bytes=len(want[0]), sinfo_stripe_width=sinfo.stripe_width)
+            # b. reads
+            hits0 = osd_sum(cluster, "planar_read_hits")
+            subr0 = osd_sum(cluster, "subop_r")
+            wall, lat = await read_all(client, pool, "reads")
+            emit("reads", objects=n_objects, GB_per_s=total / wall / 1e9,
+                 wall_s=wall, from_residents=osd_sum(
+                     cluster, "planar_read_hits") - hits0,
+                 shard_subreads=osd_sum(cluster, "subop_r") - subr0,
+                 resident_entries=store.stats()["entries"], **_pcts(lat))
+            emit("read steps", **_op_step_gaps(osds, "read", seen))
+            # c. degraded reads: lose the OSD in the most PGs' acting sets
+            p = client.osdmap.pools[pool]
+            member = collections.Counter(
+                a for pg in range(p.pg_num)
+                for a in client.osdmap.pg_to_acting(p, pg)
+                if a != CRUSH_ITEM_NONE)
+            victim = min(member, key=lambda o: (-member[o], o))
+            await cluster.kill_osd(victim)
+            await client.mark_osd_down(victim)
+            await client.refresh_map()
+            wall, lat = await read_all(client, pool, "degraded reads")
+            emit("degraded reads", lost_osd=victim,
+                 acting_sets_of_lost=member[victim], pgs=p.pg_num,
+                 GB_per_s=total / wall / 1e9, wall_s=wall, **_pcts(lat))
+            emit("degraded read steps", **_op_step_gaps(osds, "read", seen))
+            # d. recovery, then a second loss
+            push0 = osd_sum(cluster, "recovery_push")
+            moved0 = osd_sum(cluster, "backfill_bytes_moved")
+            t0 = time.perf_counter()
+            await client.repair_pool(pool)
+            repair_s = time.perf_counter() - t0
+            for _ in range(600):
+                held = live_shards(cluster, pool)
+                if all(len(held[oid]) == 11 for oid in objects):
+                    break
+                await asyncio.sleep(0.05)
+            else:
+                check(False, "osd: recovery left objects short of 11 shards")
+            recovery_s = time.perf_counter() - t0
+            emit("recovery", repair_pool_s=repair_s, restored_s=recovery_s,
+                 shards_pushed=osd_sum(cluster, "recovery_push") - push0,
+                 bytes_pushed=osd_sum(cluster, "backfill_bytes_moved")
+                 - moved0)
+            second = min(o for o in cluster.osds if o != victim)
+            await cluster.kill_osd(second)
+            await client.mark_osd_down(second)
+            await client.refresh_map()
+            wall, lat = await read_all(client, pool, "reads after recovery")
+            emit("reads after recovery", lost_osds=[victim, second],
+                 GB_per_s=total / wall / 1e9, wall_s=wall, **_pcts(lat))
+            # e. counters and op phases
+            merged = collections.defaultdict(list)
+            for osd in cluster.osds.values():
+                for phase, v in osd.ctx.op_tracker.phase_samples().items():
+                    merged[phase].extend(v)
+            emit("op phases", **{ph: _pcts([x * 1e3 for x in v])
+                                 for ph, v in merged.items() if v})
+            counters = {"ec_cuda": queue.perf.dump(),
+                        "ec_plugin": PLUGIN_PERF.dump(),
+                        "gf2_sched": SCHED_PERF.dump(),
+                        "pagestore": store.perf.dump(),
+                        # per-daemon sets, summed over all 12 OSDs
+                        "osd": _summed(o.perf for o in osds),
+                        "tier": _summed(o.tier_perf for o in osds)}
+            emit("counters", **counters)
+            return queue, store
+        finally:
+            await client.stop()
+            await cluster.stop()
+
+    _zero_counts()
+    t_phase = time.perf_counter()
+    try:
+        queue, store = asyncio.run(asyncio.wait_for(run(), 600))
+        counts, _ = _read_counts(device, "(osd)")
+    finally:
+        if osdmod._BATCH_QUEUE is not None:
+            osdmod._BATCH_QUEUE.close()
+        osdmod._BATCH_QUEUE = osdmod._PLANAR_STORE = None
+    check(PLUGIN_PERF.get("cpu_fallback") == 0
+          and PLUGIN_PERF.get("device_failed") == 0,
+          "osd: the cuda plugin fell back or failed on the card")
+    check(queue.perf.get("breaker_fallback") == 0,
+          "osd: the queue's breaker served a group off the card")
+    check(store.device_installs > 0, "osd: no device-native install")
+    for name in ("apply_packedbit", "from_packedbit_paged"):
+        check(counts[name] > 0, f"osd: {name} never launched")
+    print(f"osd: phase {time.perf_counter() - t_phase:.2f}s wall")
+    return counts
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -1911,6 +2230,8 @@ def main() -> int:
         for name, n in store_counts.items():
             counts[name]["store"] = n
         rows.update(paged_rows)
+        for name, n in phase_osd("cuda", card).items():
+            counts[name]["osd"] = n
         phase_split("cuda")
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

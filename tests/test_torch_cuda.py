@@ -545,3 +545,53 @@ def test_to_packedbit_paged_matches_plain(card, n, B, page_words):
     for s in range(2):
         assert torch.equal(dev.slabs[s].cpu(), host.slabs[s])
     torch.cuda.synchronize()
+
+
+def test_cluster_on_the_card_reads_back_and_degrades(card, monkeypatch):
+    """A small plugin=cuda k=4 m=2 cluster on the card (the default
+    osd_ec_device): put, get and a degraded get equal the data, and the
+    shared queue and resident store run on CUDA."""
+    from ceph_tpu_torch.rados import osd as osdmod
+    from ceph_tpu_torch.rados.crush import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.rados.vstart import Cluster
+
+    monkeypatch.setattr(osdmod, "_BATCH_QUEUE", None)
+    monkeypatch.setattr(osdmod, "_PLANAR_STORE", None)
+    rng = np.random.default_rng(11)
+    objects = {f"o{n}": rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+               for n in (10, 100_000, 1 << 20)}
+
+    async def go():
+        cluster = Cluster(n_osds=7, conf={"mon_osd_report_grace": 0.8,
+                                          "osd_heartbeat_interval": 0.2,
+                                          "client_op_timeout": 30.0})
+        await cluster.start()
+        c = await cluster.client()
+        try:
+            pool = await c.create_pool("cu", "ec", pg_num=4, profile={
+                "plugin": "cuda", "technique": "reed_sol_van",
+                "k": "4", "m": "2"})
+            for oid, data in objects.items():
+                await c.put(pool, oid, data)
+            reads = [await c.get(pool, oid) for oid in objects]
+            p = c.osdmap.pools[pool]
+            acting = c.osdmap.pg_to_acting(p, c.osdmap.object_to_pg(p, "o10"))
+            for victim in [a for a in acting if a != CRUSH_ITEM_NONE][:2]:
+                await cluster.kill_osd(victim)
+                await c.mark_osd_down(victim)
+            degraded = [await c.get(pool, oid) for oid in objects]
+            return reads, degraded
+        finally:
+            await c.stop()
+            await cluster.stop()
+
+    try:
+        reads, degraded = asyncio.run(asyncio.wait_for(go(), 120))
+        want = list(objects.values())
+        assert reads == want and degraded == want
+        assert osdmod._BATCH_QUEUE.device.type == "cuda"
+        assert osdmod._PLANAR_STORE.device.type == "cuda"
+        assert osdmod._PLANAR_STORE.device_arm
+    finally:
+        if osdmod._BATCH_QUEUE is not None:
+            osdmod._BATCH_QUEUE.close()

@@ -1,0 +1,295 @@
+"""The port's in-process cluster against ceph_tpu's, byte for byte.
+
+One script runs on each package: a 7-OSD cluster with a k=4 m=2 EC pool
+puts four objects, reads them, loses two acting OSDs, reads them degraded,
+repairs the pool, loses a third OSD and reads them again.  The reference
+runs ``plugin=tpu`` with JAX on the CPU (no queue: JAX_PLATFORMS=cpu);
+the port runs ``plugin=cuda`` on the CPU (``osd_ec_device: cpu``, a
+``CudaPlugin(device="cpu")`` registered under "cuda") with
+CEPH_TPU_FORCE_BATCH=1, so that its batching queue and paged resident store
+carry the writes, reads and recovery.  Every read, and every object's map of
+shard index -> (stored bytes, HashInfo) after the put and after the repair,
+must be equal across the two packages.
+
+Beside it: the port's counterpart of the reference's residency test
+(tests/test_planar.py, TestOsdPlanarResidency), an OSD that must refuse to
+start on a host without CUDA when no CPU is named, and the missing mgr.
+"""
+
+import asyncio
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ceph_tpu.rados.crush import CRUSH_ITEM_NONE
+from ceph_tpu.rados.vstart import Cluster as RefCluster
+from ceph_tpu_torch.ec.plugins.cuda import CudaPlugin
+from ceph_tpu_torch.ec.registry import registry
+from ceph_tpu_torch.rados import osd as port_osd
+from ceph_tpu_torch.rados.pagestore import PagedResidentStore
+from ceph_tpu_torch.rados.vstart import Cluster as PortCluster
+
+FAST = {
+    "mon_osd_report_grace": 0.8,
+    "osd_heartbeat_interval": 0.2,
+    "osd_repair_delay": 0.3,
+    # long enough that the reference's first jit compile is not retried
+    "client_op_timeout": 30.0,
+}
+SIZES = (10, 4096, 100_000, 256 << 10)
+K, M = 4, 2
+
+
+def payload(n, seed):
+    return np.random.default_rng(seed).integers(
+        0, 256, n, dtype=np.uint8).tobytes()
+
+
+@pytest.fixture()
+def port_cpu(monkeypatch):
+    """plugin=cuda on the CPU for one test: the registry's "cuda" entry is a
+    CPU CudaPlugin, the queue engages (CEPH_TPU_FORCE_BATCH=1) and the
+    process-shared queue and store start and end with the test."""
+    monkeypatch.setenv("CEPH_TPU_FORCE_BATCH", "1")
+    saved = registry.get("cuda")
+    registry.remove("cuda")
+    registry.add("cuda", CudaPlugin(device="cpu"))
+    monkeypatch.setattr(port_osd, "_BATCH_QUEUE", None)
+    monkeypatch.setattr(port_osd, "_PLANAR_STORE", None)
+    try:
+        yield
+    finally:
+        if port_osd._BATCH_QUEUE is not None:
+            port_osd._BATCH_QUEUE.close()
+        registry.remove("cuda")
+        if saved is not None:
+            registry.add("cuda", saved)
+
+
+def shard_map(cluster, pool, oids):
+    """oid -> {shard: (stored bytes, HashInfo blob)} over the live OSDs.  A
+    shard held by two OSDs (an old holder mid-backfill) must hold the same
+    bytes on both.  Rollback slots (shard + PREV_SLOT) are left out: one
+    holds an earlier attempt's bytes where a write was retried on a newer
+    map, which depends on how long the first dispatch took."""
+    out = {oid: {} for oid in oids}
+    for osd_id in sorted(cluster.osds):
+        store = cluster.osds[osd_id].store
+        for oid, shard in store.list_objects(pool):
+            if oid not in out or shard >= port_osd.PREV_SLOT:
+                continue
+            key = (pool, oid, shard)
+            got = (bytes(store.read(key)[0]),
+                   store.getattr(key, "hinfo_key"))
+            assert out[oid].setdefault(shard, got) == got, (oid, shard)
+    return out
+
+
+async def settled_shard_map(cluster, pool, oids, polls=5):
+    """The shard map once it has stayed the same for `polls` polls in a
+    row (recovery pushes land asynchronously)."""
+    last, same = None, 0
+    for _ in range(200):
+        got = shard_map(cluster, pool, oids)
+        same = same + 1 if got == last else 0
+        if same == polls:
+            return got
+        last = got
+        await asyncio.sleep(0.05)
+    raise AssertionError("shards did not settle")
+
+
+async def cluster_script(Cluster, plugin, conf):
+    cluster = Cluster(n_osds=7, conf={**FAST, **conf})
+    await cluster.start()
+    client = await cluster.client()
+    try:
+        pool = await client.create_pool(
+            "ecpool", "ec", pg_num=4,
+            profile={"plugin": plugin, "technique": "reed_sol_van",
+                     "k": str(K), "m": str(M)})
+        objects = {f"obj-{n}": payload(n, seed=i)
+                   for i, n in enumerate(SIZES)}
+        for oid, data in objects.items():
+            await client.put(pool, oid, data)
+
+        async def read_all():
+            return [await client.get(pool, oid) for oid in objects]
+
+        reads = [await read_all()]
+        shards = [await settled_shard_map(cluster, pool, objects)]
+        p = client.osdmap.pools[pool]
+        pg = client.osdmap.object_to_pg(p, f"obj-{SIZES[-1]}")
+        acting = client.osdmap.pg_to_acting(p, pg)
+        for victim in [a for a in acting if a != CRUSH_ITEM_NONE][:2]:
+            await cluster.kill_osd(victim)
+            await client.mark_osd_down(victim)
+        reads.append(await read_all())
+        await asyncio.sleep(0.2)
+        await client.refresh_map()
+        await client.repair_pool(pool)
+        shards.append(await settled_shard_map(cluster, pool, objects))
+        victim = sorted(cluster.osds)[0]
+        await cluster.kill_osd(victim)
+        await client.mark_osd_down(victim)
+        reads.append(await read_all())
+        return objects, reads, shards
+    finally:
+        await client.stop()
+        await cluster.stop()
+
+
+def run(coro, timeout=120):
+    return asyncio.run(asyncio.wait_for(coro, timeout))
+
+
+@pytest.fixture(scope="module")
+def reference_run():
+    """The script on ceph_tpu: plugin=tpu, JAX on the CPU, no queue."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("CEPH_TPU_FORCE_BATCH", raising=False)
+        return run(cluster_script(RefCluster, "tpu", {}))
+
+
+@pytest.mark.parametrize("arm", ["host", "device"])
+def test_cluster_script_matches_reference(reference_run, port_cpu,
+                                          monkeypatch, arm):
+    """The port's run on each arm of its paged store: the host arm, and the
+    device arm on CPU tensors (the arm the card runs: paged reads, device
+    installs)."""
+    monkeypatch.setenv("CEPH_TPU_DEVICE_SLAB", "1" if arm == "device" else "0")
+    ref_objects, ref_reads, ref_shards = reference_run
+    objects, reads, shards = run(
+        cluster_script(PortCluster, "cuda", {"osd_ec_device": "cpu"}))
+    want = list(objects.values())
+    assert objects == ref_objects
+    for phase, (got, ref_got) in enumerate(zip(reads, ref_reads)):
+        assert got == ref_got == want, f"read phase {phase}"
+    for phase, (got, ref_got) in enumerate(zip(shards, ref_shards)):
+        assert got == ref_got, f"shard map {phase}"
+    # the port's run went through its queue and resident store
+    queue, store = port_osd._BATCH_QUEUE, port_osd._PLANAR_STORE
+    assert queue is not None and queue.device.type == "cpu"
+    assert queue.submits > 0
+    assert isinstance(store, PagedResidentStore)
+    assert store.device.type == "cpu"
+    assert store.device_arm == (arm == "device")
+    assert store.hits > 0  # reads were served from residents
+    if arm == "device":
+        assert store.device_installs > 0
+
+
+def test_write_read_repair_ride_residents(port_cpu):
+    """Full-object EC writes leave residents; reads at the written version
+    serve from them (no decode, no sub-read), overwrites re-install and
+    deletes drop them (the reference's TestOsdPlanarResidency case, on
+    plugin=cuda)."""
+    async def go():
+        cluster = PortCluster(n_osds=4, conf={"osd_auto_repair": False,
+                                              "client_op_timeout": 60.0,
+                                              "osd_ec_device": "cpu"})
+        await cluster.start()
+        try:
+            c = await cluster.client()
+            pool = await c.create_pool("pl", profile={
+                "plugin": "cuda", "technique": "reed_sol_van",
+                "k": "2", "m": "1"})
+            store = port_osd.shared_planar_store(device="cpu")
+            assert store is not None
+            blob = os.urandom(100_000)
+            await c.put(pool, "obj", blob)
+            assert any(
+                o._planar is not None
+                and o._planar_key(pool, "obj") in store
+                for o in cluster.osds.values())
+            hits0 = store.hits
+            subr0 = sum(o.perf.get("subop_r") for o in cluster.osds.values())
+            pl0 = sum(o.perf.get("planar_read_hits")
+                      for o in cluster.osds.values())
+            assert await c.get(pool, "obj") == blob
+            assert store.hits > hits0, "read did not touch residents"
+            assert sum(o.perf.get("planar_read_hits")
+                       for o in cluster.osds.values()) == pl0 + 1
+            assert sum(o.perf.get("subop_r")
+                       for o in cluster.osds.values()) == subr0
+            blob2 = os.urandom(90_000)
+            await c.put(pool, "obj", blob2)
+            assert await c.get(pool, "obj") == blob2
+            await c.delete(pool, "obj")
+            assert all(
+                o._planar_key(pool, "obj") not in store
+                for o in cluster.osds.values() if o._planar is not None)
+            await c.stop()
+        finally:
+            await cluster.stop()
+
+    run(go(), timeout=60)
+
+
+@pytest.mark.parametrize("conf", [{}, {"osd_ec_device": "cuda"}])
+def test_osd_without_cuda_refuses_to_start(monkeypatch, conf):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_osd.OSD(("127.0.0.1", 1), conf=dict(conf))
+
+
+def test_osd_named_cpu_batches_only_when_forced(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("CEPH_TPU_FORCE_BATCH", raising=False)
+    monkeypatch.setattr(port_osd, "_BATCH_QUEUE", None)
+    monkeypatch.setattr(port_osd, "_PLANAR_STORE", None)
+    osd = port_osd.OSD(("127.0.0.1", 1), conf={"osd_ec_device": "cpu"})
+    assert osd._ec_device == torch.device("cpu")
+    assert osd._ec_queue is None and osd._planar is None
+
+
+def test_shared_store_keeps_its_first_device(port_cpu, monkeypatch):
+    store = port_osd.shared_planar_store(device="cpu")
+    assert store.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="runs on cpu"):
+        port_osd.shared_planar_store(device="cuda")
+
+
+def test_cluster_with_mgr_raises():
+    with pytest.raises(NotImplementedError, match="mgr daemon"):
+        PortCluster(n_osds=1, with_mgr=True)
+
+
+def test_configured_mgr_is_logged_once_and_nothing_sent(monkeypatch):
+    monkeypatch.setattr(port_osd, "_BATCH_QUEUE", None)
+    monkeypatch.setattr(port_osd, "_PLANAR_STORE", None)
+    osd = port_osd.OSD(("127.0.0.1", 1), conf={"osd_ec_device": "cpu",
+                                               "mgr_addr": "127.0.0.1:1"})
+    sent = []
+    monkeypatch.setattr(osd.messenger, "send",
+                        lambda *a, **k: sent.append(a))
+    for _ in range(3):
+        asyncio.run(osd._report_to_mgr())
+    errors = [e[3] for e in osd.ctx.log._recent_errors]
+    assert errors.count(port_osd.MGR_NOT_PORTED) == 1
+    assert sent == []
+
+
+def test_pool_with_a_plugin_the_port_lacks_is_refused():
+    from ceph_tpu_torch.rados.client import RadosError
+
+    async def go():
+        cluster = PortCluster(n_osds=3, conf={"osd_ec_device": "cpu"})
+        await cluster.start()
+        c = await cluster.client()
+        try:
+            for plugin in ("isa", "lrc", "shec", "clay", "xor"):
+                with pytest.raises(RadosError, match=f"plugin {plugin} not found"):
+                    await c.create_pool(f"no-{plugin}", "ec", pg_num=2,
+                                        profile={"plugin": plugin, "k": "2",
+                                                 "m": "1"})
+        finally:
+            await c.stop()
+            await cluster.stop()
+
+    run(go(), timeout=60)
