@@ -1,6 +1,7 @@
 # Copy of ceph_tpu/common/config.py at commit 4ac5bd2, with its ceph_tpu
 # import statements rebound to ceph_tpu_torch.  It adds ``osd_ec_device``,
-# and preloads the port's plugins (jerasure, cuda) by default.
+# and preloads the port's plugins (jerasure isa shec lrc clay cuda) by
+# default, where the reference's last one is tpu.
 """Typed option tables + runtime config proxy.
 
 Role-equivalent of the reference's md_config_t/ConfigProxy
@@ -118,7 +119,7 @@ DEFAULT_SCHEMA: Dict[str, Option] = _opts(
     Option("erasure_code_dir", OPT_STR, "", flags=(FLAG_STARTUP,),
            desc="directory to dlopen native EC plugins from"),
     Option("osd_erasure_code_plugins", OPT_STR,
-           "jerasure cuda", flags=(FLAG_STARTUP,),
+           "jerasure isa shec lrc clay cuda", flags=(FLAG_STARTUP,),
            desc="plugins preloaded at daemon start"),
     Option("osd_pool_default_erasure_code_profile", OPT_STR,
            "plugin=jerasure technique=reed_sol_van k=2 m=2"),

@@ -81,6 +81,16 @@ def gf2_combine(select: np.ndarray, rows: np.ndarray) -> np.ndarray:
     return out
 
 
+def _native_gf_apply():
+    """The native core's gf_apply (native/bridge.py), whose library is built
+    and loaded at its first call.  Unlike the reference, which falls back
+    to the numpy oracle when the library cannot build or load, a failure
+    raises with the compiler's message."""
+    from ceph_tpu_torch.native import bridge
+
+    return bridge.gf_apply
+
+
 class MatrixErasureCode(ErasureCode):
     """Systematic GF(2^w) matrix code: parity = G[m,k] (x) data[k,B]."""
 
@@ -108,8 +118,13 @@ class MatrixErasureCode(ErasureCode):
     def _apply(self, matrix: np.ndarray, regions: np.ndarray) -> np.ndarray:
         """Apply a GF(2^w) matrix to symbol regions — THE compute seam.
 
-        CPU codecs compute it with the numpy GF(2^w) oracle; the cuda plugin
-        overrides this one method to dispatch the bit-plane GF(2) kernels."""
+        CPU codecs route w=8 through the port's native vectorized region
+        kernels (GFNI/AVX2, native/csrc) and every other w through the numpy
+        GF(2^w) oracle; the cuda plugin overrides this one method to
+        dispatch the bit-plane GF(2) kernels."""
+        if self.w == 8 and regions.dtype == np.uint8:
+            return _native_gf_apply()(np.asarray(matrix, dtype=np.uint8),
+                                      regions)
         return gf(self.w).matmul(matrix, regions)
 
     def encode_chunks(self, data: np.ndarray) -> np.ndarray:

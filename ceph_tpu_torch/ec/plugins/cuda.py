@@ -18,10 +18,10 @@ Bit-matrices are cached per codec, keyed by matrix: on the host for the
 schedule lane (whose programs the gf2 schedule LRU keeps), on the device
 for the int8-plane lane, in one dict.
 
-The device is the plugin's: ``CudaPlugin(device=None)`` builds codecs on the
-current CUDA device, ``CudaPlugin(device="cpu")`` on the CPU, where the same
-lane runs the kernels' plain versions.  Asking for CUDA where there is none
-fails the factory with -ENODEV.  A dispatch error propagates as an
+The device is the factory call's (ec/registry.py): ``device=None`` builds
+codecs on the current CUDA device, ``"cuda:N"`` on that card and ``"cpu"`` on
+the CPU, where the same lane runs the kernels' plain versions.  Asking for
+CUDA where there is none fails the factory with -ENODEV.  A dispatch error propagates as an
 ErasureCodeError(-EIO) carrying its cause; nothing falls back to another
 device, so a result always comes from the device the codec was built for.
 """
@@ -195,10 +195,7 @@ class CudaPlugin(ErasureCodePlugin):
     """Builds plugin=cuda codecs on `device`: the current CUDA device by
     default, or whatever resolve_device accepts ("cuda:N", "cpu")."""
 
-    def __init__(self, device: DeviceLike = None) -> None:
-        self.device = device
-
-    def factory(self, profile: ErasureCodeProfile):
+    def factory(self, profile: ErasureCodeProfile, device: DeviceLike = None):
         technique = profile.get("technique", "reed_sol_van")
         cls = TECHNIQUES.get(technique)
         if cls is None:
@@ -208,7 +205,7 @@ class CudaPlugin(ErasureCodePlugin):
                 f"(have {sorted(TECHNIQUES)})",
             )
         try:
-            device = resolve_device(self.device)
+            device = resolve_device(device)
         except (RuntimeError, ValueError) as e:
             raise ErasureCodeError(-errno.ENODEV, str(e)) from e
         codec = cls()

@@ -235,7 +235,7 @@ TECHNIQUES = {
 
 
 class JerasurePlugin(ErasureCodePlugin):
-    def factory(self, profile: ErasureCodeProfile):
+    def factory(self, profile: ErasureCodeProfile, device=None):
         technique = profile.get("technique", "reed_sol_van")
         cls = TECHNIQUES.get(technique)
         if cls is None:

@@ -14,7 +14,18 @@ under ``ceph_tpu_torch.ec.plugins.<name>`` or out-of-tree as ``ec_<name>.py`` in
     def __erasure_code_init__(name, registry)    # must registry.add(name, plugin)
 
 This is the port's own singleton, a copy of ceph_tpu.ec.registry: its
-in-tree plugins are ``jerasure`` (CPU) and ``cuda`` (the GPU kernels).
+in-tree plugins are ``jerasure``, ``isa``, ``shec``, ``lrc``, ``clay`` and the
+``xor`` test codec (CPU), and ``cuda`` (the GPU kernels).
+
+Where the reference's ``factory(plugin, directory, profile)`` ends, the port's
+takes a ``device``, and a plugin's ``factory(profile, device=None)`` does too.
+It names where a ``plugin=cuda`` codec computes ("cuda:N", "cpu"; None = the
+plugin's own default, the current CUDA device).  It travels beside the
+profile, never in it, so a persisted profile stays byte-equal to the
+reference's; the layered plugins (lrc's layers, clay's mds/pft) pass it on to
+the codecs they build through the registry, and host-only plugins ignore it.
+The OSD passes its ``osd_ec_device``; the monitor, which only checks and
+completes profiles, passes "cpu", so it needs no card.
 
 Like the reference:
   * version mismatch -> -EXDEV (ErasureCodePlugin.cc:141-153);
@@ -49,7 +60,8 @@ INIT_HOOK = "__erasure_code_init__"
 class ErasureCodePlugin:
     """Base class for plugin objects; subclasses implement factory()."""
 
-    def factory(self, profile: ErasureCodeProfile) -> ErasureCodeInterface:
+    def factory(self, profile: ErasureCodeProfile,
+                device=None) -> ErasureCodeInterface:
         raise NotImplementedError
 
 
@@ -124,16 +136,18 @@ class ErasureCodePluginRegistry:
         plugin_name: str,
         directory: str,
         profile: ErasureCodeProfile,
+        device=None,
     ) -> ErasureCodeInterface:
-        """Load (if needed) and instantiate a codec; re-validate that the
-        instantiated codec's completed profile is a superset of the request
-        (the reference errors if the normalized profile differs,
+        """Load (if needed) and instantiate a codec on `device` (see the
+        module docstring); re-validate that the instantiated codec's
+        completed profile is a superset of the request (the reference
+        errors if the normalized profile differs,
         ErasureCodePlugin.cc:108-112)."""
         with self._lock:
             plugin = self._plugins.get(plugin_name)
             if plugin is None:
                 plugin = self.load(plugin_name, directory)
-        codec = plugin.factory(dict(profile))
+        codec = plugin.factory(dict(profile), device=device)
         got = codec.get_profile()
         for key, value in profile.items():
             if key in ("directory",):

@@ -790,6 +790,18 @@ class BatchingQueue:
             try:
                 if lc.done is not None:
                     lc.done.synchronize()  # kernel and copies finished
+                device_s = time.monotonic() - lc.t_launch
+                # counted before the fan-out resolves the group's futures,
+                # so that whoever reads the counters or the timeline once
+                # its op is done sees that op (the reference counts after)
+                self.perf.tinc("dispatch_dev", device_s)
+                self.perf.hinc("group_size", len(g.requests))
+                self.timeline.append({
+                    "ts": time.time(), "lane": g.kind,
+                    "group_size": len(g.requests),
+                    "bytes": g.pending_bytes,
+                    "queue_wait_s": round(lc.wait_s, 6),
+                    "device_s": round(device_s, 6)})
                 getattr(self, f"_complete_{g.kind}")(g, lc.state)
             except Exception as e:
                 if lc.span is not None:
@@ -798,27 +810,18 @@ class BatchingQueue:
                 self._breaker_failure(g.kind)
                 self._fail_group(g, e, lc.wait_s)
                 continue
-            device_s = time.monotonic() - lc.t_launch
             if self.dispatch_timeout and device_s > self.dispatch_timeout:
                 # completed, but over the watchdog's budget: the lane is
                 # sick, so trip until a probe proves it healthy
                 self._breaker_failure(g.kind)
             else:
                 self._breaker_success(g.kind)
-            self.perf.tinc("dispatch_dev", device_s)
-            self.perf.hinc("group_size", len(g.requests))
             if lc.span is not None:
                 lc.span.event("fan-out")
                 lc.span.finish()
             for req in g.requests:
                 if req.span is not None:
                     req.span.event(f"ec fan-out lane={g.kind}")
-            self.timeline.append({
-                "ts": time.time(), "lane": g.kind,
-                "group_size": len(g.requests),
-                "bytes": g.pending_bytes,
-                "queue_wait_s": round(lc.wait_s, 6),
-                "device_s": round(device_s, 6)})
 
     def _dispatch(self, groups: List[_Group]) -> None:
         # synchronous drain (flush()/close()): launch then complete

@@ -1,5 +1,6 @@
 # Copy of ceph_tpu/rados/bluestore.py at commit 4ac5bd2, with its ceph_tpu
-# import statements rebound to ceph_tpu_torch.
+# import statements rebound to ceph_tpu_torch; what it reads back from the
+# wire or a store unpickles through rados/unpickle.py.
 """BlueStore-lite: block-file object store with WAL, checksums, allocator.
 
 Role-equivalent of the reference's BlueStore (reference
@@ -48,6 +49,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from ceph_tpu_torch.rados.kv import KeyValueDB, MemDB, WalDB, WriteBatch
+from ceph_tpu_torch.rados import unpickle
 from ceph_tpu_torch.rados.store import (ENOSPCError,  # noqa: F401 (re-export)
                                   Key, ObjectStore, ShardMeta, Transaction,
                                   unwrap as store_unwrap)
@@ -221,7 +223,7 @@ class BlueStore(ObjectStore):
 
     def _load(self) -> None:
         for k, v in self.db.iterate(PREFIX_OBJ):
-            onode: _Onode = pickle.loads(v)
+            onode: _Onode = unpickle.loads(v)
             key = _unokey(k)
             self._onodes[key] = onode
             for off, length in onode.extents:

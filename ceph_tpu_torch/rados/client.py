@@ -1,5 +1,6 @@
 # Copy of ceph_tpu/rados/client.py at commit 4ac5bd2, with its ceph_tpu
-# import statements rebound to ceph_tpu_torch.
+# import statements rebound to ceph_tpu_torch; what it reads back from the
+# wire or a store unpickles through rados/unpickle.py.
 """RADOS client: computes placement itself and talks straight to primaries.
 
 Role-equivalent of librados + Objecter (reference src/osdc/Objecter.cc:2257
@@ -48,6 +49,7 @@ from ceph_tpu_torch.common.tracing import Tracer
 from ceph_tpu_torch.rados.clog import ClogEntry, LogClient, decode_entries
 from ceph_tpu_torch.rados.messenger import BufferList, Messenger
 from ceph_tpu_torch.rados.monclient import MonTargets
+from ceph_tpu_torch.rados import unpickle
 from ceph_tpu_torch.rados.types import (
     MAuthTicket,
     MAuthTicketReply,
@@ -1194,14 +1196,12 @@ class RadosClient:
         (per-sub-op results, object version the op observed); a failing
         sub-op raises RadosError with its typed code and nothing
         applied."""
-        import pickle as _pickle
-
         self._check_oid(oid)
         seq, snaps = self._write_snapc(pool_id, snapc)
         reply = await self._op(MOSDOp(op="multi", pool_id=pool_id, oid=oid,
                                       ops=list(ops), snapc_seq=seq,
                                       snapc_snaps=list(snaps)))
-        return _pickle.loads(reply.data), reply.version
+        return unpickle.loads(reply.data), reply.version
 
     # -- self-managed snapshots (reference IoCtxImpl selfmanaged_snap_*) ----
 
@@ -1301,14 +1301,12 @@ class RadosClient:
     async def deep_scrub(self, pool_id: int) -> Dict[str, int]:
         """Ask every up OSD to deep-scrub the PGs it leads; sums the
         per-primary summaries."""
-        import pickle as _pickle
-
         total = {"scrubbed": 0, "errors": 0, "repaired": 0}
         for osd_id in self._pg_primaries(pool_id):
             try:
                 reply = await self._op_direct(
                     osd_id, MOSDOp(op="deep-scrub", pool_id=pool_id))
-                for k, v in _pickle.loads(reply.data).items():
+                for k, v in unpickle.loads(reply.data).items():
                     total[k] = total.get(k, 0) + v
             except RadosError:
                 continue
@@ -1429,11 +1427,9 @@ class RadosClient:
                      payload: bytes = b"") -> List:
         """Notify watchers; returns the list of watcher addrs that acked
         (librados notify2 reply role)."""
-        import pickle as _pickle
-
         reply = await self._op(MOSDOp(op="notify", pool_id=pool_id, oid=oid,
                                       data=payload))
-        return _pickle.loads(reply.data)
+        return unpickle.loads(reply.data)
 
     async def list_objects(self, pool_id: int,
                            nspace: str = "") -> List[str]:

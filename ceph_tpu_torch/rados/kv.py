@@ -1,5 +1,6 @@
 # Copy of ceph_tpu/rados/kv.py at commit 4ac5bd2, with its ceph_tpu
-# import statements rebound to ceph_tpu_torch.
+# import statements rebound to ceph_tpu_torch; what it reads back from the
+# wire or a store unpickles through rados/unpickle.py.
 """KeyValueDB: the metadata-store abstraction under BlueStore-lite.
 
 Role-equivalent of the reference's KeyValueDB over RocksDB (reference
@@ -21,6 +22,7 @@ import struct
 import zlib
 
 from ceph_tpu_torch.utils.checksum import checksum
+from ceph_tpu_torch.rados import unpickle
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 _REC = struct.Struct("<II")
@@ -99,7 +101,7 @@ class WalDB(MemDB):
     def _recover(self) -> None:
         if os.path.exists(self._snap_path):
             with open(self._snap_path, "rb") as f:
-                self._tables = pickle.load(f)
+                self._tables = unpickle.load(f)
         if os.path.exists(self._log_path):
             valid_end = 0
             with open(self._log_path, "rb") as f:
@@ -121,7 +123,7 @@ class WalDB(MemDB):
                         break
                     valid_end = f.tell()
                     batch = WriteBatch()
-                    batch.ops = pickle.loads(blob)
+                    batch.ops = unpickle.loads(blob)
                     self._apply(batch)
             # truncate the torn tail: appends after it would sit behind
             # garbage and be unreachable to the NEXT recovery

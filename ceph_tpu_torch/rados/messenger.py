@@ -1,6 +1,7 @@
 # Copy of ceph_tpu/rados/messenger.py at commit 4ac5bd2, with its ceph_tpu
 # import statements rebound to ceph_tpu_torch.  One seam differs: the rx
-# path's install staging takes the daemon's device (osd_ec_device).
+# path's install staging takes the daemon's device (osd_ec_device).  Control
+# payloads unpickle through rados/unpickle.py.
 """Async messenger: typed messages over an authenticated, crc-guarded,
 replay-safe framed TCP protocol.
 
@@ -138,6 +139,7 @@ import numpy as np
 
 from ceph_tpu_torch.common.perf_counters import PerfCounters, PerfCountersBuilder
 from ceph_tpu_torch.common.throttle import Throttle
+from ceph_tpu_torch.rados import unpickle
 from ceph_tpu_torch.utils import wirepath as _wirepath
 from ceph_tpu_torch.rados.reactor import (PROC_TOKEN, ReactorPool, RingConnection,
                                     ring_abandon, ring_claim, ring_offer)
@@ -653,7 +655,7 @@ def decode_message(type_id: int, version: int, payload: bytes,
             raise ValueError(f"{cls.__name__}: unexpected fixed frame")
         return _unpack_fixed(cls, payload, blob)
     obj = cls.__new__(cls)
-    obj.__dict__.update(pickle.loads(payload))
+    obj.__dict__.update(unpickle.loads(payload))
     if blob is not None:
         setattr(obj, getattr(cls, "BLOB_ATTR"), blob)
     return obj

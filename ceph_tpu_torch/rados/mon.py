@@ -1,6 +1,8 @@
 # Copy of ceph_tpu/rados/mon.py at commit 4ac5bd2, with its ceph_tpu
 # import statements rebound to ceph_tpu_torch.  A configured mgr is logged
-# as not ported (the mgr daemon is a later slice).
+# as not ported (the mgr daemon is a later slice); pool profiles are checked
+# with codecs built on the CPU; stored state unpickles through
+# common/unpickle.py.
 """Monitor: cluster-map authority (maps only — never on the data path).
 
 Role-equivalent of the reference's mon (reference src/mon/Monitor.h:108):
@@ -39,6 +41,7 @@ from ceph_tpu_torch.common.perf_counters import PerfCountersBuilder
 from ceph_tpu_torch.ec.interface import ErasureCodeError
 from ceph_tpu_torch.ec.registry import registry
 from ceph_tpu_torch.rados import MGR_NOT_PORTED
+from ceph_tpu_torch.rados import unpickle
 from ceph_tpu_torch.rados.auth import KeyServer
 from ceph_tpu_torch.rados.clog import (
     CLOG_ERROR,
@@ -278,7 +281,7 @@ class Monitor:
         )
 
     def _apply_committed(self, version: int, value: bytes) -> None:
-        state = pickle.loads(value)
+        state = unpickle.loads(value)
         new_map = state["osdmap"]
         if new_map.epoch >= self.osdmap.epoch:
             self.osdmap = new_map
@@ -320,7 +323,7 @@ class Monitor:
         if prev is None or cur.epoch > prev.epoch:
             # `value` is already a pickled copy of this state: one loads
             # gives an independent snapshot at half the dumps+loads cost
-            self._published = pickle.loads(value)["osdmap"]
+            self._published = unpickle.loads(value)["osdmap"]
 
     def _map_reply_for(self, since_epoch: int, tid: str = "") -> MMapReply:
         """Incremental chain when we still hold every delta past
@@ -840,7 +843,7 @@ class Monitor:
 
     async def _handle_forward(self, msg: MForward) -> None:
         try:
-            reply = await self._process_write(pickle.loads(msg.inner),
+            reply = await self._process_write(unpickle.loads(msg.inner),
                                               who=getattr(msg, "who", ""))
             await self._send_rank(
                 msg.from_rank,
@@ -1206,7 +1209,7 @@ class Monitor:
             entry = self._pending_forwards.pop(msg.tid, None)
             if entry is not None:
                 try:
-                    await entry[0].send(pickle.loads(msg.inner))
+                    await entry[0].send(unpickle.loads(msg.inner))
                 except (ConnectionError, OSError):
                     pass
         elif isinstance(msg, MGetMap):
@@ -1516,7 +1519,7 @@ class Monitor:
         return reply
 
     def _restore_state(self, backup: bytes) -> None:
-        state = pickle.loads(backup)
+        state = unpickle.loads(backup)
         self.osdmap = state["osdmap"]
         self.cluster_conf = state["cluster_conf"]
         self._next_osd_id = state["next_osd_id"]
@@ -2321,8 +2324,12 @@ class Monitor:
             plugin = profile.get("plugin", "jerasure")
             try:
                 # normalize_profile: factory+init round-trip validates and
-                # completes the profile (defaults filled by the codec)
-                codec = registry.factory(plugin, profile.get("directory", ""), profile)
+                # completes the profile (defaults filled by the codec).  The
+                # mon computes nothing with the codec, so a plugin=cuda one
+                # is built on the CPU: its geometry is the jerasure
+                # technique class's, and the mon needs no card
+                codec = registry.factory(plugin, profile.get("directory", ""),
+                                         profile, device="cpu")
             except ErasureCodeError as e:
                 return MCreatePoolReply(ok=False, error=str(e))
             profile = dict(codec.get_profile())

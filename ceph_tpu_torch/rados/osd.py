@@ -1,9 +1,10 @@
 # Copy of ceph_tpu/rados/osd.py at commit 4ac5bd2, with its ceph_tpu
 # import statements rebound to ceph_tpu_torch.  The seams onto the device
 # differ: the daemon's device is ``osd_ec_device`` (the card unless the
-# conf names the CPU), which the shared queue and resident store run on;
-# the perf sets are the port's (``ec_cuda``, the cuda plugin's
-# ``ec_plugin``); and a configured mgr is logged as not ported.
+# conf names the CPU), which its codecs, the shared queue and the resident
+# store run on; the perf sets are the port's (``ec_cuda``, the cuda plugin's
+# ``ec_plugin``); a configured mgr is logged as not ported; and what it reads
+# from the wire unpickles through rados/unpickle.py.
 """OSD daemon: the EC data plane.
 
 Role-equivalent of the reference's OSD + ECBackend (reference
@@ -75,6 +76,7 @@ from ceph_tpu_torch.rados.clog import (LogClient, build_crash_report,
 from ceph_tpu_torch.rados.messenger import (TRANSPORT_ERRORS, BufferList,
                                       Messenger, as_bytes)
 from ceph_tpu_torch.rados import MGR_NOT_PORTED
+from ceph_tpu_torch.rados import unpickle
 from ceph_tpu_torch.rados.monclient import MonTargets
 from ceph_tpu_torch.rados.peering import (
     ACTIVE,
@@ -1196,9 +1198,10 @@ class OSD:
         codec = self._codecs.get(pool.pool_id)
         if codec is None:
             profile = dict(pool.profile)
+            # on the daemon's EC device, like its queue and resident store
             codec = registry.factory(
-                profile.get("plugin", "jerasure"), profile.get("directory", ""), profile
-            )
+                profile.get("plugin", "jerasure"), profile.get("directory", ""),
+                profile, device=self._ec_device)
             self._codecs[pool.pool_id] = codec
         return codec
 
@@ -4391,7 +4394,7 @@ class OSD:
         if self._primary(pool, pg, acting) != self.osd_id:
             return MOSDOpReply(ok=False, code=-errno.ESTALE,
                                error="not primary")
-        watcher = tuple(pickle.loads(op.data))
+        watcher = tuple(unpickle.loads(op.data))
         key = (op.pool_id, op.oid)
         if remove:
             self._watchers.get(key, set()).discard(watcher)

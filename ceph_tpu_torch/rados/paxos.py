@@ -1,5 +1,6 @@
 # Copy of ceph_tpu/rados/paxos.py at commit 4ac5bd2, with its ceph_tpu
-# import statements rebound to ceph_tpu_torch.
+# import statements rebound to ceph_tpu_torch; what it reads back from the
+# wire or a store unpickles through rados/unpickle.py.
 """Mon consensus: elections, Paxos-replicated state, persistent store.
 
 Role-equivalent of the reference's mon consensus stack (reference
@@ -33,6 +34,8 @@ import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
+from ceph_tpu_torch.rados import unpickle
+
 
 class MonitorDBStore:
     """Durable committed-version store; file-backed when path given."""
@@ -49,7 +52,7 @@ class MonitorDBStore:
 
     def _load(self) -> None:
         with open(self.path, "rb") as f:
-            blob = pickle.load(f)
+            blob = unpickle.load(f)
         self.committed = blob["committed"]
         self.last_committed = blob["last_committed"]
         self.first_committed = blob["first_committed"]

@@ -1,5 +1,6 @@
 # Copy of ceph_tpu/rados/pglog.py at commit 4ac5bd2, with its ceph_tpu
-# import statements rebound to ceph_tpu_torch.
+# import statements rebound to ceph_tpu_torch; what it reads back from the
+# wire or a store unpickles through rados/unpickle.py.
 """PG log: the per-PG replicated operation log driving delta recovery.
 
 Role-equivalent of the reference's PGLog (reference src/osd/PGLog.{h,cc}):
@@ -31,6 +32,8 @@ import pickle
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
+from ceph_tpu_torch.rados import unpickle
+
 Version = Tuple[int, int]  # (epoch, seq) — eversion_t role
 
 ZERO: Version = (0, 0)
@@ -61,7 +64,7 @@ class LogEntry:
     @classmethod
     def decode(cls, blob: bytes) -> "LogEntry":
         e = cls.__new__(cls)
-        e.__dict__.update(pickle.loads(blob))
+        e.__dict__.update(unpickle.loads(blob))
         return e
 
 
@@ -163,7 +166,7 @@ class PGLog:
         log = cls(max_entries=max_entries)
         info = omap.get("info")
         if info is not None:
-            log.tail = tuple(pickle.loads(info).get("tail", ZERO))
+            log.tail = tuple(unpickle.loads(info).get("tail", ZERO))
         entries = sorted(
             (k, v) for k, v in omap.items() if k.startswith(cls.OMAP_PREFIX)
         )

@@ -16,8 +16,10 @@ re-decode each distinct one AFTER the loop (outside the timed window), so
 the CLI cannot report a fast-but-wrong decode.
 
 One flag more than the reference: ``--device`` (default ``cuda``) is where
-plugin=cuda runs; ``--device cpu`` runs its lane on the host.  Plugins that
-compute on the host (jerasure) ignore it.
+plugin=cuda runs; ``--device cpu`` runs its lane on the host.  lrc and clay
+pass it on to the plugin=cuda codecs they build (a layer's plugin=cuda,
+scalar_mds=cuda); plugins that compute on the host (jerasure, isa, shec)
+ignore it.
 """
 
 from __future__ import annotations
@@ -82,18 +84,13 @@ def build_profile(args):
 
 
 def make_codec(args, profile):
-    """Resolve the codec through the registry.  plugin=cuda resolves through
-    a registry of its own holding a CudaPlugin for --device, so the device
-    choice never leaks into the process-wide singleton."""
-    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry, registry
+    """Resolve the codec through the registry on --device: plugin=cuda
+    codecs, including the ones lrc's layers and clay's scalar_mds=cuda
+    build, compute there; host plugins ignore it."""
+    from ceph_tpu_torch.ec.registry import registry
 
-    reg = registry
-    if args.plugin == "cuda" and not args.directory:
-        from ceph_tpu_torch.ec.plugins.cuda import CudaPlugin
-
-        reg = ErasureCodePluginRegistry()
-        reg.add("cuda", CudaPlugin(device=args.device))
-    return reg.factory(args.plugin, args.directory, dict(profile))
+    return registry.factory(args.plugin, args.directory, dict(profile),
+                            device=args.device)
 
 
 def bench_encode(codec, args) -> int:

@@ -7,8 +7,8 @@ Phases; any failure exits nonzero before the result line is printed:
 
 1. build    nvcc builds every kernel library from ceph_tpu_torch/ops/csrc
             (one nvcc per source, all started together) and g++ the port's
-            crc32c library beside them; seconds and ptxas register/spill
-            lines are printed.
+            crc32c library and native GF(2^8) core beside them; seconds and
+            ptxas register/spill lines are printed.
 2. kernels  each kernel against its plain PyTorch version on the card, byte
             for byte, at the main path's shapes, at 2 MiB of columns, and at
             ragged, misaligned and wide shapes; CUDA-event medians with the
@@ -156,13 +156,36 @@ Phases; any failure exits nonzero before the result line is printed:
             the store must count device installs.  The queue and store are
             one per process, shared by the 12 OSDs.  Each line is "osd
             {...}" with the card's name and power limit.
-7. split    host prepare / host->device / kernel call (apply_packedbit,
+7. codecs   the CPU codec plugins on the port's native core, and the
+            layered codecs and an isa pool on the card:
+            a. isa k=8 m=3 and jerasure k=8 m=3 and k=4 m=2 parity of a
+               4 MiB object against the numpy GF(2^8) oracle, then the
+               benchmark CLI on BASELINE.md's five configurations (jerasure
+               reed_sol_van k=4 m=2, isa reed_sol_van k=8 m=3, jerasure
+               cauchy_good k=10 m=4, lrc k=4 m=2 l=3, clay k=8 m=4 d=11) at
+               4 MiB, encode and a 2-erasure decode, on this machine's CPU:
+               GB/s beside the CPU model, its thread count and the native
+               core's region kernel (gfni, avx2 or scalar);
+            b. lrc k=4 m=2 l=3 in its explicit form with three plugin=cuda
+               layers, and clay k=8 m=4 d=11 scalar_mds=cuda, built on the
+               card through the registry, with every launch count set to 0
+               just before and read just after (the "codecs" run): every
+               chunk, a 2-erasure decode and clay's sub-chunk repair of one
+               chunk against the jerasure-layered CPU codecs, K4's launches
+               per encode, decode and repair, and the CLI's GB/s for each;
+            c. phase 6 again with a plugin=isa reed_sol_van k=8 m=3 pool and
+               16 objects (the "osd-isa" run): every stored shard and
+               HashInfo against the CPU isa codec, apply_packedbit and
+               from_packedbit_paged launched, no fallback.  Each line is
+               "codecs {...}" or "osd-isa {...}" with the card's name and
+               power limit.
+8. split    host prepare / host->device / kernel call (apply_packedbit,
             the lane's one launch) / device->host of one 4 MiB encode (the
             codec API takes host bytes), and the device's busy share over
             back-to-back encodes from torch.profiler.
-8. report   the card, one {"kernels": [...]} line (each row's "launches" is
-            the sum of its counts in phases 3, 4, 5 and 6, "launches_by_run"
-            the six runs), and the result line.
+9. report   the card, one {"kernels": [...]} line (each row's "launches" is
+            the sum of its counts in phases 3 to 7, "launches_by_run" the
+            eight runs), and the result line.
 """
 
 from __future__ import annotations
@@ -300,14 +323,17 @@ def sync(device) -> None:
 def phase_build() -> None:
     import threading
 
+    from ceph_tpu_torch.native import bridge
     from ceph_tpu_torch.ops import build
     from ceph_tpu_torch.utils import checksum
 
     t0 = time.perf_counter()
     crc_s = []
 
-    def build_crc():  # g++ of the crc32c library beside the nvcc builds
+    def build_crc():  # g++ of the host libraries beside the nvcc builds
         checksum.build()
+        crc_s.append(time.perf_counter() - t0)
+        bridge.build()
         crc_s.append(time.perf_counter() - t0)
 
     crc = threading.Thread(target=build_crc)
@@ -316,9 +342,11 @@ def phase_build() -> None:
     crc.join()
     check(checksum.checksum_kind() == "crc32c",
           "the port's crc32c library did not build")
+    check(len(crc_s) == 2, "the port's native GF core did not build")
     print(f"build: {time.perf_counter() - t0:.2f}s total "
           f"({', '.join(f'{n} {s:.2f}s' for n, (s, _) in results.items())}"
-          f", crc32c {crc_s[0] if crc_s else float('nan'):.2f}s)")
+          f", crc32c {crc_s[0] if crc_s else float('nan'):.2f}s"
+          f", native GF core {crc_s[1] if len(crc_s) > 1 else float('nan'):.2f}s)")
     for name, (_, log) in results.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -675,39 +703,42 @@ def phase_packedbit(device, bms, rng, rows, card) -> None:
 
 # ---------------------------------------------------------------- phase 3 --
 
+def _bench(argv):
+    """One benchmark CLI run: (seconds, KB, GB/s of object data, its line)."""
+    from ceph_tpu_torch.tools import benchmark
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = benchmark.main(argv)
+    text = out.getvalue().strip()
+    check(rc == 0, f"benchmark {' '.join(argv)} exited {rc}")
+    seconds, kb = text.split("\t")
+    return float(seconds), int(kb), int(kb) * 1024 / float(seconds) / 1e9, text
+
+
 def _run_cli(argv, label):
     """One benchmark CLI run; prints its rate and what the schedule LRU did
     in it (gf2_sched deltas: hits, misses, seconds spent compiling)."""
     from ceph_tpu_torch.ops.gf2 import SCHED_PERF
-    from ceph_tpu_torch.tools import benchmark
 
     before = SCHED_PERF.dump()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = benchmark.main(argv)
+    seconds, _, gbps, text = _bench(argv)
     after = SCHED_PERF.dump()
-    text = out.getvalue().strip()
-    check(rc == 0, f"benchmark {' '.join(argv)} exited {rc}")
-    seconds, kb = text.split("\t")
-    gbps = int(kb) * 1024 / float(seconds) / 1e9
     print(f"cli {label}: {text!r} -> {gbps:.3f} GB/s of object data")
     compile_s = after["compile_s"]["sum"] - before["compile_s"]["sum"]
     print("sched " + json.dumps({
-        "cli": label, "seconds": float(seconds),
+        "cli": label, "seconds": seconds,
         **{k: after[k] - before[k] for k in ("hit", "miss", "compile")},
-        "compile_s": compile_s, "compile_share": compile_s / float(seconds)}))
+        "compile_s": compile_s, "compile_share": compile_s / seconds}))
 
 
 def _codec(plugin: str, device, **profile):
-    """A codec through a registry, as the benchmark CLI resolves it: with a
-    CudaPlugin for `device` registered as plugin=cuda."""
-    from ceph_tpu_torch.ec.plugins.cuda import CudaPlugin
-    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    """A codec through the registry on `device`, as the benchmark CLI
+    resolves it (host plugins ignore the device)."""
+    from ceph_tpu_torch.ec.registry import registry
 
-    registry = ErasureCodePluginRegistry()
-    registry.add("cuda", CudaPlugin(device=device))
     profile = {"plugin": plugin, **{k: str(v) for k, v in profile.items()}}
-    return registry.factory(plugin, "", profile)
+    return registry.factory(plugin, "", profile, device=device)
 
 
 def _replay_corpus(device) -> None:
@@ -1973,19 +2004,25 @@ def _op_step_gaps(osds, kind: str, seen: set):
             for name, v in gaps.items()}
 
 
-def phase_osd(device, card, n_objects=QUEUE_OBJECTS, store_bytes=STORE_BYTES):
+OSD_POOL = {"plugin": "cuda", "technique": "reed_sol_van", "k": "8", "m": "3"}
+
+
+def phase_osd(device, card, n_objects=QUEUE_OBJECTS, store_bytes=STORE_BYTES,
+              pool_profile=OSD_POOL, label="osd"):
     """The OSD daemon path: an in-process vstart cluster of one mon and
     OSD_COUNT OSDs on MemStore, at the default EC device conf (batching on,
     residency on, the paged store's device arm at 256 MiB of 64 KiB pages,
-    the 2 ms window), one plugin=cuda reed_sol_van k=8 m=3 pool, 4 MiB
-    objects.  Writes, reads, degraded reads after one OSD is lost, and a
-    repair followed by a second loss; every read byte for byte, every
-    stored shard and HashInfo against the CPU plugin=jerasure.  Recovery
-    is left to repair_pool (osd_auto_repair off) so that its time is its
-    own.  The queue and the store are one per process, shared by the OSDs,
-    as in any in-process cluster.  Returns each kernel's launch count in
-    this run.  `store_bytes` is the resident store's budget
-    (osd_ec_planar_bytes; the default is the OSD's own, 256 MiB)."""
+    the 2 ms window), one k=8 m=3 pool of `pool_profile` (plugin=cuda
+    reed_sol_van by default), 4 MiB objects.  Writes, reads, degraded reads
+    after one OSD is lost, and a repair followed by a second loss; every
+    read byte for byte, every stored shard and HashInfo against the CPU
+    codec of the same profile (plugin=jerasure in plugin=cuda's place).
+    Recovery is left to repair_pool (osd_auto_repair off) so that its time
+    is its own.  The queue and the store are one per process, shared by the
+    OSDs, as in any in-process cluster.  Returns each kernel's launch count
+    in this run.  `store_bytes` is the resident store's budget
+    (osd_ec_planar_bytes; the default is the OSD's own, 256 MiB); each line
+    printed starts with `label`."""
     import asyncio
 
     import torch
@@ -1999,13 +2036,17 @@ def phase_osd(device, card, n_objects=QUEUE_OBJECTS, store_bytes=STORE_BYTES):
     from ceph_tpu_torch.rados.vstart import Cluster
 
     def emit(step, **numbers):
-        print("osd " + json.dumps({"step": step, **numbers,
-                                   "store_bytes": store_bytes, "card": card}))
+        print(f"{label} " + json.dumps({"step": step, **numbers,
+                                        "store_bytes": store_bytes,
+                                        "card": card}))
 
-    cpu = _codec("jerasure", "cpu", technique="reed_sol_van", k=8, m=3)
+    cpu_plugin = ("jerasure" if pool_profile["plugin"] == "cuda"
+                  else pool_profile["plugin"])
+    cpu = _codec(cpu_plugin, "cpu", **{k: v for k, v in pool_profile.items()
+                                       if k != "plugin"})
     rng = np.random.default_rng(SEED + 10)
-    objects = {f"osd-{i}": rng.integers(0, 256, OBJECT_SIZE,
-                                        dtype=np.uint8).tobytes()
+    objects = {f"{label}-{i}": rng.integers(0, 256, OBJECT_SIZE,
+                                            dtype=np.uint8).tobytes()
                for i in range(n_objects)}
     total = OBJECT_SIZE * n_objects
     conf = {"osd_ec_device": str(device), "osd_auto_repair": False,
@@ -2040,7 +2081,7 @@ def phase_osd(device, card, n_objects=QUEUE_OBJECTS, store_bytes=STORE_BYTES):
     async def read_all(client, pool, step):
         got, wall, lat = await timed_ops(lambda oid: client.get(pool, oid))
         for oid, data in zip(objects, got):
-            check(data == objects[oid], f"osd {step}: {oid} read back wrong")
+            check(data == objects[oid], f"{label} {step}: {oid} read back wrong")
         return wall, lat
 
     def osd_sum(cluster, name):
@@ -2053,14 +2094,12 @@ def phase_osd(device, card, n_objects=QUEUE_OBJECTS, store_bytes=STORE_BYTES):
         try:
             queue, store = osdmod._BATCH_QUEUE, osdmod._PLANAR_STORE
             check(queue is not None and queue.device.type == "cuda",
-                  f"the OSDs' queue is not on the card: {queue}")
+                  f"{label}: the OSDs' queue is not on the card: {queue}")
             check(store is not None and store.device.type == "cuda"
-                  and store.device_arm,
-                  "the OSDs' resident store is not on the card's device arm")
+                  and store.device_arm, f"{label}: the OSDs' resident store "
+                  "is not on the card's device arm")
             pool = await client.create_pool(
-                "osdphase", "ec", pg_num=OSD_PG_NUM, profile={
-                    "plugin": "cuda", "technique": "reed_sol_van",
-                    "k": "8", "m": "3"})
+                label, "ec", pg_num=OSD_PG_NUM, profile=dict(pool_profile))
             # a. writes
             _, wall, lat = await timed_ops(
                 lambda oid: client.put(pool, oid, objects[oid]))
@@ -2098,12 +2137,12 @@ def phase_osd(device, card, n_objects=QUEUE_OBJECTS, store_bytes=STORE_BYTES):
                             continue
                         seen.add(c)
                         check(bytes(got[0]) == bytes(want[c]),
-                              f"osd {oid} shard {c} on osd.{osd.osd_id} "
-                              "differs from the CPU plugin=jerasure")
+                              f"{label} {oid} shard {c} on osd.{osd.osd_id} "
+                              f"differs from the CPU plugin={cpu_plugin}")
                         check(osd.store.getattr((pool, oid, c), "hinfo_key")
                               == hinfo.encode(),
-                              f"osd {oid} shard {c}: HashInfo differs")
-                check(seen == set(range(11)), f"osd {oid} stored {seen}")
+                              f"{label} {oid} shard {c}: HashInfo differs")
+                check(seen == set(range(11)), f"{label} {oid} stored {seen}")
             emit("shards", objects=n_objects, shards_checked=11 * n_objects,
                  shard_bytes=len(want[0]), sinfo_stripe_width=sinfo.stripe_width)
             # b. reads
@@ -2143,7 +2182,7 @@ def phase_osd(device, card, n_objects=QUEUE_OBJECTS, store_bytes=STORE_BYTES):
                     break
                 await asyncio.sleep(0.05)
             else:
-                check(False, "osd: recovery left objects short of 11 shards")
+                check(False, f"{label}: recovery left objects short of 11 shards")
             recovery_s = time.perf_counter() - t0
             emit("recovery", repair_pool_s=repair_s, restored_s=recovery_s,
                  shards_pushed=osd_sum(cluster, "recovery_push") - push0,
@@ -2180,21 +2219,188 @@ def phase_osd(device, card, n_objects=QUEUE_OBJECTS, store_bytes=STORE_BYTES):
     t_phase = time.perf_counter()
     try:
         queue, store = asyncio.run(asyncio.wait_for(run(), 600))
-        counts, _ = _read_counts(device, "(osd)")
+        counts, _ = _read_counts(device, f"({label})")
     finally:
         if osdmod._BATCH_QUEUE is not None:
             osdmod._BATCH_QUEUE.close()
         osdmod._BATCH_QUEUE = osdmod._PLANAR_STORE = None
     check(PLUGIN_PERF.get("cpu_fallback") == 0
           and PLUGIN_PERF.get("device_failed") == 0,
-          "osd: the cuda plugin fell back or failed on the card")
+          f"{label}: the cuda plugin fell back or failed on the card")
     check(queue.perf.get("breaker_fallback") == 0,
-          "osd: the queue's breaker served a group off the card")
-    check(store.device_installs > 0, "osd: no device-native install")
+          f"{label}: the queue's breaker served a group off the card")
+    check(store.device_installs > 0, f"{label}: no device-native install")
     for name in ("apply_packedbit", "from_packedbit_paged"):
-        check(counts[name] > 0, f"osd: {name} never launched")
-    print(f"osd: phase {time.perf_counter() - t_phase:.2f}s wall")
+        check(counts[name] > 0, f"{label}: {name} never launched")
+    print(f"{label}: phase {time.perf_counter() - t_phase:.2f}s wall")
     return counts
+
+
+# ----------------------------------------------------------- phase codecs --
+
+# BASELINE.md's five configurations, as the benchmark CLI takes them
+BASELINE_CONFIGS = (
+    ("jerasure reed_sol_van k=4 m=2",
+     ["--plugin", "jerasure", "-P", "technique=reed_sol_van", "-P", "k=4",
+      "-P", "m=2"]),
+    ("isa reed_sol_van k=8 m=3",
+     ["--plugin", "isa", "-P", "technique=reed_sol_van", "-P", "k=8",
+      "-P", "m=3"]),
+    ("jerasure cauchy_good k=10 m=4",
+     ["--plugin", "jerasure", "-P", "technique=cauchy_good", "-P", "k=10",
+      "-P", "m=4"]),
+    ("lrc k=4 m=2 l=3", ["--plugin", "lrc", "-P", "k=4", "-P", "m=2",
+                         "-P", "l=3"]),
+    ("clay k=8 m=4 d=11", ["--plugin", "clay", "-P", "k=8", "-P", "m=4",
+                           "-P", "d=11"]),
+)
+CODEC_ITERATIONS = 10        # per CLI run of the codecs phase
+CLAY_ITERATIONS = 2          # clay on the card: hundreds of launches an object
+OSD_ISA_OBJECTS = 16
+# lrc k=4 m=2 l=3 in its explicit form, each layer a codec of `plugin`
+LRC_CHUNKS = ("DDc_DDc_", "DDDc____", "____DDDc")
+
+
+def _lrc_layers(plugin: str) -> str:
+    return json.dumps([[c, f"plugin={plugin} technique=reed_sol_van"]
+                       for c in LRC_CHUNKS])
+
+
+def _cpu_model() -> str:
+    """The host CPU as lscpu gives it: model name, vendor, family and
+    model number (a virtual machine may report its name as "unknown")."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60)
+    fields = dict(line.split(":", 1) for line in out.stdout.splitlines()
+                  if ":" in line)
+    return ", ".join(f"{key} {fields[key].strip()}" for key in
+                     ("Model name", "Vendor ID", "CPU family", "Model")
+                     if key in fields)
+
+
+def _cli_gbps(argv, label, emit, **extra) -> None:
+    """One benchmark CLI run, its rate emitted as a line."""
+    seconds, kb, gbps, _ = _bench(argv)
+    emit("cli", config=label, argv=" ".join(argv), seconds=seconds, KB=kb,
+         GB_per_s=gbps, **extra)
+
+
+def phase_codecs(device, card):
+    """The CPU codec plugins and the native core, then lrc and clay on
+    plugin=cuda, then an isa pool through the daemon.  Returns each
+    kernel's launch counts by run ("codecs", "osd-isa")."""
+    from ceph_tpu_torch.ec.gf import gf
+    from ceph_tpu_torch.ec.registry import registry
+    from ceph_tpu_torch.native import bridge
+    from ceph_tpu_torch.ops import cuda_packedbit
+
+    cpu_model, threads = _cpu_model(), os.cpu_count()
+    t_phase = time.perf_counter()
+
+    def emit(step, **numbers):
+        print("codecs " + json.dumps({"step": step, **numbers,
+                                      "card": card}))
+
+    # a. the CPU baselines on this machine's CPU, chunks held against the
+    #    numpy oracle first
+    bridge.lib()
+    rng = np.random.default_rng(SEED + 20)
+    for plugin, k, m in (("isa", 8, 3), ("jerasure", 8, 3), ("jerasure", 4, 2)):
+        codec = registry.factory(plugin, "", {
+            "plugin": plugin, "technique": "reed_sol_van",
+            "k": str(k), "m": str(m)})
+        rows = rng.integers(0, 256, (k, OBJECT_SIZE // k), dtype=np.uint8)
+        check(np.array_equal(codec.encode_chunks(rows),
+                             gf(8).matmul(codec.matrix, rows)),
+              f"{plugin} k={k} m={m}: the native core differs from the "
+              "numpy oracle")
+    emit("native identity", simd=bridge.simd_kind(), cpu=cpu_model,
+         threads=threads, checked="isa k=8 m=3, jerasure k=8 m=3 and k=4 "
+         f"m=2 parity of a {OBJECT_SIZE} byte object = numpy GF(2^8) oracle")
+    size = ["--size", str(OBJECT_SIZE), "--iterations", str(CODEC_ITERATIONS)]
+    for label, argv in BASELINE_CONFIGS:
+        for workload in (["--workload", "encode"],
+                         ["--workload", "decode", "--erasures", "2"]):
+            _cli_gbps(argv + size + workload, label, emit, device="cpu",
+                      simd=bridge.simd_kind(), cpu=cpu_model, threads=threads)
+
+    # b. lrc and clay on plugin=cuda, every chunk and decode against the
+    #    jerasure-layered CPU codecs
+    obj = np.random.default_rng(SEED + 21).integers(
+        0, 256, OBJECT_SIZE, dtype=np.uint8).tobytes()
+    cases = (
+        ("lrc k=4 m=2 l=3 (plugin=cuda layers)",
+         {"plugin": "lrc", "mapping": "DD__DD__", "layers": _lrc_layers("cuda")},
+         {"plugin": "lrc", "mapping": "DD__DD__",
+          "layers": _lrc_layers("jerasure")},
+         (2, 5), CODEC_ITERATIONS),
+        ("clay k=8 m=4 d=11 scalar_mds=cuda",
+         {"plugin": "clay", "k": "8", "m": "4", "d": "11", "scalar_mds": "cuda"},
+         {"plugin": "clay", "k": "8", "m": "4", "d": "11"},
+         (0, 11), CLAY_ITERATIONS),
+    )
+    k4 = cuda_packedbit.apply_packedbit
+    _zero_counts()
+    for label, profile, twin_profile, lost, iterations in cases:
+        codec = registry.factory(profile["plugin"], "", dict(profile),
+                                 device=device)
+        twin = registry.factory(twin_profile["plugin"], "", dict(twin_profile))
+        n = codec.get_chunk_count()
+        sync(device)
+        before = k4.launches
+        got = codec.encode(set(range(n)), obj)
+        sync(device)
+        per_encode = k4.launches - before
+        want = twin.encode(set(range(n)), obj)
+        for c in range(n):
+            check(np.array_equal(got[c], want[c]),
+                  f"{label} chunk {c} differs from the CPU jerasure twin")
+        avail = {c: want[c] for c in range(n) if c not in lost}
+        before = k4.launches
+        out = codec.decode(set(lost), avail, len(want[0]))
+        sync(device)
+        per_decode = k4.launches - before
+        for c in lost:
+            check(np.array_equal(out[c], want[c]),
+                  f"{label} chunk {c} decoded wrong")
+        if profile["plugin"] == "clay":
+            plan = codec.minimum_to_decode({1}, set(range(n)) - {1})
+            sc = len(want[0]) // codec.get_sub_chunk_count()
+            helpers = {c: np.concatenate([want[c][o * sc:(o + r) * sc]
+                                          for o, r in runs])
+                       for c, runs in plan.items()}
+            before = k4.launches
+            out = codec.decode({1}, helpers, len(want[0]))
+            sync(device)
+            per_repair = k4.launches - before
+            check(np.array_equal(out[1], want[1]),
+                  f"{label}: the sub-chunk repair of chunk 1 is wrong")
+        else:
+            per_repair = None
+        check(per_encode > 0 and per_decode > 0,
+              f"{label}: apply_packedbit did not launch")
+        emit("identity", config=label, chunks=n, chunk_bytes=len(want[0]),
+             lost=list(lost), k4_launches_per_encode=per_encode,
+             k4_launches_per_decode=per_decode,
+             k4_launches_per_repair=per_repair)
+        argv = ["--plugin", profile["plugin"], "--device", str(device)] + [
+            a for key, v in profile.items() if key != "plugin"
+            for a in ("-P", f"{key}={v}")]
+        run = ["--size", str(OBJECT_SIZE), "--iterations", str(iterations)]
+        for workload in (["--workload", "encode"],
+                         ["--workload", "decode", "--erasures", "2"]):
+            _cli_gbps(argv + run + workload, label, emit, device=str(device))
+    counts, _ = _read_counts(device, "(codecs)")
+    check(counts["apply_packedbit"] > 0, "codecs: apply_packedbit never launched")
+
+    # c. an isa pool through the daemon on the card
+    isa_counts = phase_osd(device, card, n_objects=OSD_ISA_OBJECTS,
+                           pool_profile={"plugin": "isa",
+                                         "technique": "reed_sol_van",
+                                         "k": "8", "m": "3"}, label="osd-isa")
+    print(f"codecs: phase {time.perf_counter() - t_phase:.2f}s wall")
+    return {name: {"codecs": counts[name], "osd-isa": isa_counts[name]}
+            for name in counts}
 
 
 # ------------------------------------------------------------------ main --
@@ -2232,6 +2438,8 @@ def main() -> int:
         rows.update(paged_rows)
         for name, n in phase_osd("cuda", card).items():
             counts[name]["osd"] = n
+        for name, runs in phase_codecs("cuda", card).items():
+            counts[name].update(runs)
         phase_split("cuda")
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

@@ -595,3 +595,109 @@ def test_cluster_on_the_card_reads_back_and_degrades(card, monkeypatch):
     finally:
         if osdmod._BATCH_QUEUE is not None:
             osdmod._BATCH_QUEUE.close()
+
+
+def test_lrc_and_clay_on_cuda_equal_their_jerasure_twins(card):
+    """lrc with three plugin=cuda layers and clay with scalar_mds=cuda, built
+    on the card through the registry: chunks, a degraded decode and clay's
+    sub-chunk repair equal the jerasure-layered CPU codecs', and each
+    codec's work launches K4 (apply_packedbit)."""
+    import json
+
+    from ceph_tpu_torch.ec.registry import registry
+
+    def layers(plugin):
+        return json.dumps([[c, f"plugin={plugin} technique=reed_sol_van"]
+                           for c in ("DDc_DDc_", "DDDc____", "____DDDc")])
+
+    pairs = [
+        ({"plugin": "lrc", "mapping": "DD__DD__", "layers": layers("cuda")},
+         {"plugin": "lrc", "mapping": "DD__DD__", "layers": layers("jerasure")},
+         [(0,), (2, 5)]),
+        ({"plugin": "clay", "k": "8", "m": "4", "d": "11", "scalar_mds": "cuda"},
+         {"plugin": "clay", "k": "8", "m": "4", "d": "11"},
+         [(3,), (0, 11)]),
+    ]
+    data = np.random.default_rng(12).integers(0, 256, 1 << 20,
+                                              dtype=np.uint8).tobytes()
+    for profile, twin_profile, erasures in pairs:
+        codec = registry.factory(profile["plugin"], "", dict(profile),
+                                 device=card)
+        twin = registry.factory(twin_profile["plugin"], "", dict(twin_profile))
+        n = codec.get_chunk_count()
+        cuda_packedbit.apply_packedbit.launches = 0
+        got = codec.encode(set(range(n)), data)
+        assert cuda_packedbit.apply_packedbit.launches > 0, profile["plugin"]
+        want = twin.encode(set(range(n)), data)
+        for c in range(n):
+            assert np.array_equal(got[c], want[c]), (profile["plugin"], c)
+        for erased in erasures:
+            avail = {c: want[c] for c in range(n) if c not in erased}
+            out = codec.decode(set(erased), avail, len(want[0]))
+            for c in erased:
+                assert np.array_equal(out[c], want[c]), (erased, c)
+
+
+def test_isa_pool_on_the_card_writes_residents_and_reads_them(card,
+                                                               monkeypatch):
+    """A plugin=isa k=4 m=2 pool on the card: its writes take the queue's
+    packed-bit resident lane (K4) and install residents, its reads come
+    from them through the paged K6, and every stored shard equals the CPU
+    isa codec's."""
+    from ceph_tpu_torch.ec.registry import registry
+    from ceph_tpu_torch.rados import osd as osdmod
+    from ceph_tpu_torch.rados.vstart import Cluster
+
+    monkeypatch.setattr(osdmod, "_BATCH_QUEUE", None)
+    monkeypatch.setattr(osdmod, "_PLANAR_STORE", None)
+    profile = {"plugin": "isa", "technique": "reed_sol_van", "k": "4", "m": "2"}
+    cpu = registry.factory("isa", "", dict(profile))
+    rng = np.random.default_rng(13)
+    objects = {f"i{n}": rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+               for n in (4096, 100_000, 1 << 20)}
+
+    async def go():
+        cluster = Cluster(n_osds=6, conf={"client_op_timeout": 30.0,
+                                          "osd_auto_repair": False})
+        await cluster.start()
+        c = await cluster.client()
+        try:
+            pool = await c.create_pool("isa", "ec", pg_num=4,
+                                       profile=dict(profile))
+            for oid, data in objects.items():
+                await c.put(pool, oid, data)
+            store = osdmod._PLANAR_STORE
+            with store._lock:  # reads must gather from the pages
+                for key in list(store._memo):
+                    store._memo_discard(key)
+            hits0 = sum(o.perf.get("planar_read_hits")
+                        for o in cluster.osds.values())
+            reads = [await c.get(pool, oid) for oid in objects]
+            hits = sum(o.perf.get("planar_read_hits")
+                       for o in cluster.osds.values()) - hits0
+            osd0 = next(iter(cluster.osds.values()))
+            sinfo = osd0._sinfo(c.osdmap.pools[pool])
+            for oid, data in objects.items():
+                want = ecutil.batched_encode(cpu, sinfo, data)
+                for o in cluster.osds.values():
+                    for s in range(6):
+                        got = o.store.read((pool, oid, s))
+                        if got is not None:
+                            assert bytes(got[0]) == bytes(want[s]), (oid, s)
+            return reads, hits
+        finally:
+            await c.stop()
+            await cluster.stop()
+
+    launches = cuda_packedbit.apply_packedbit, cuda_packedbit.from_packedbit_paged
+    for fn in launches:
+        fn.launches = 0
+    try:
+        reads, hits = asyncio.run(asyncio.wait_for(go(), 120))
+        assert reads == list(objects.values())
+        assert hits > 0
+        assert all(fn.launches > 0 for fn in launches)
+        assert osdmod._PLANAR_STORE.device.type == "cuda"
+    finally:
+        if osdmod._BATCH_QUEUE is not None:
+            osdmod._BATCH_QUEUE.close()

@@ -15,7 +15,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROBE = """
 import sys
 import ceph_tpu_torch.common.context
+import ceph_tpu_torch.ec.plugins.clay
 import ceph_tpu_torch.ec.plugins.cuda
+import ceph_tpu_torch.ec.plugins.isa
+import ceph_tpu_torch.ec.plugins.lrc
+import ceph_tpu_torch.ec.plugins.shec
+import ceph_tpu_torch.ec.plugins.xor
+import ceph_tpu_torch.native.bridge
 import ceph_tpu_torch.ops.cuda_gf2
 import ceph_tpu_torch.ops.cuda_packedbit
 import ceph_tpu_torch.ops.slab
@@ -28,6 +34,7 @@ import ceph_tpu_torch.rados.mon
 import ceph_tpu_torch.rados.osd
 import ceph_tpu_torch.rados.pagestore
 import ceph_tpu_torch.rados.reactor_proc
+import ceph_tpu_torch.rados.unpickle
 import ceph_tpu_torch.rados.vstart
 import ceph_tpu_torch.services.cls
 import ceph_tpu_torch.tools.benchmark
@@ -35,6 +42,9 @@ import ceph_tpu_torch.utils.checksum
 import ceph_tpu_torch.utils.wirepath
 from ceph_tpu_torch.ec.registry import registry
 registry.factory("jerasure", "", {"plugin": "jerasure", "k": "2", "m": "1"})
+for plugin in ("isa", "shec", "clay", "xor"):
+    registry.factory(plugin, "", {"plugin": plugin}).encode({0, 1}, b"x" * 64)
+registry.factory("lrc", "", {"plugin": "lrc", "k": "4", "m": "2", "l": "3"})
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "ceph_tpu" or m.startswith("ceph_tpu."))

@@ -4,19 +4,24 @@ One script runs on each package: a 7-OSD cluster with a k=4 m=2 EC pool
 puts four objects, reads them, loses two acting OSDs, reads them degraded,
 repairs the pool, loses a third OSD and reads them again.  The reference
 runs ``plugin=tpu`` with JAX on the CPU (no queue: JAX_PLATFORMS=cpu);
-the port runs ``plugin=cuda`` on the CPU (``osd_ec_device: cpu``, a
-``CudaPlugin(device="cpu")`` registered under "cuda") with
+the port runs ``plugin=cuda`` on the CPU (``osd_ec_device: cpu``, on which
+the OSDs build their codecs, while the mon checks profiles on the CPU) with
 CEPH_TPU_FORCE_BATCH=1, so that its batching queue and paged resident store
 carry the writes, reads and recovery.  Every read, and every object's map of
 shard index -> (stored bytes, HashInfo) after the put and after the repair,
 must be equal across the two packages.
 
 Beside it: the port's counterpart of the reference's residency test
-(tests/test_planar.py, TestOsdPlanarResidency), an OSD that must refuse to
-start on a host without CUDA when no CPU is named, and the missing mgr.
+(tests/test_planar.py, TestOsdPlanarResidency), of its sub-chunk recovery
+test (tests/test_subchunk_recovery.py) and a mixed-layout pool run (four
+pool layouts, full writes, partial overwrites and degraded reads against a
+model); a mon without a card that accepts plugin=cuda pools, OSDs that build
+codecs on their ``osd_ec_device``, an OSD that must refuse to start on a host
+without CUDA when no CPU is named, and the missing mgr.
 """
 
 import asyncio
+import json
 import os
 
 import numpy as np
@@ -24,10 +29,13 @@ import pytest
 import torch
 
 from ceph_tpu.rados.crush import CRUSH_ITEM_NONE
+from ceph_tpu.rados.mon import Monitor as RefMonitor
+from ceph_tpu.rados.types import MCreatePool as RefMCreatePool
 from ceph_tpu.rados.vstart import Cluster as RefCluster
-from ceph_tpu_torch.ec.plugins.cuda import CudaPlugin
-from ceph_tpu_torch.ec.registry import registry
 from ceph_tpu_torch.rados import osd as port_osd
+from ceph_tpu_torch.rados.mon import Monitor
+from ceph_tpu_torch.rados.store import Transaction
+from ceph_tpu_torch.rados.types import MCreatePool, PoolInfo
 from ceph_tpu_torch.rados.pagestore import PagedResidentStore
 from ceph_tpu_torch.rados.vstart import Cluster as PortCluster
 
@@ -49,13 +57,11 @@ def payload(n, seed):
 
 @pytest.fixture()
 def port_cpu(monkeypatch):
-    """plugin=cuda on the CPU for one test: the registry's "cuda" entry is a
-    CPU CudaPlugin, the queue engages (CEPH_TPU_FORCE_BATCH=1) and the
-    process-shared queue and store start and end with the test."""
+    """The queue engages on the CPU for one test (CEPH_TPU_FORCE_BATCH=1),
+    and the process-shared queue and store start and end with the test.
+    The OSDs' conf names the CPU (``osd_ec_device: cpu``), on which they
+    build their plugin=cuda codecs."""
     monkeypatch.setenv("CEPH_TPU_FORCE_BATCH", "1")
-    saved = registry.get("cuda")
-    registry.remove("cuda")
-    registry.add("cuda", CudaPlugin(device="cpu"))
     monkeypatch.setattr(port_osd, "_BATCH_QUEUE", None)
     monkeypatch.setattr(port_osd, "_PLANAR_STORE", None)
     try:
@@ -63,9 +69,6 @@ def port_cpu(monkeypatch):
     finally:
         if port_osd._BATCH_QUEUE is not None:
             port_osd._BATCH_QUEUE.close()
-        registry.remove("cuda")
-        if saved is not None:
-            registry.add("cuda", saved)
 
 
 def shard_map(cluster, pool, oids):
@@ -276,6 +279,8 @@ def test_configured_mgr_is_logged_once_and_nothing_sent(monkeypatch):
 
 
 def test_pool_with_a_plugin_the_port_lacks_is_refused():
+    """The reference's plugin=tpu is the one plugin the port does not have
+    (plugin=cuda takes its place)."""
     from ceph_tpu_torch.rados.client import RadosError
 
     async def go():
@@ -283,7 +288,7 @@ def test_pool_with_a_plugin_the_port_lacks_is_refused():
         await cluster.start()
         c = await cluster.client()
         try:
-            for plugin in ("isa", "lrc", "shec", "clay", "xor"):
+            for plugin in ("tpu", "nope"):
                 with pytest.raises(RadosError, match=f"plugin {plugin} not found"):
                     await c.create_pool(f"no-{plugin}", "ec", pg_num=2,
                                         profile={"plugin": plugin, "k": "2",
@@ -293,3 +298,192 @@ def test_pool_with_a_plugin_the_port_lacks_is_refused():
             await cluster.stop()
 
     run(go(), timeout=60)
+
+
+# -- devices: the mon checks profiles on the CPU, the OSD builds codecs on
+#    its osd_ec_device, including the ones lrc and clay build inside --------
+
+CUDA_LAYERS = json.dumps([[chunks, "plugin=cuda technique=reed_sol_van"]
+                          for chunks in ("DDc_DDc_", "DDDc____", "____DDDc")])
+CUDA_PROFILES = {
+    "cuda": {"plugin": "cuda", "technique": "reed_sol_van", "k": "4", "m": "2"},
+    "lrc": {"plugin": "lrc", "mapping": "DD__DD__", "layers": CUDA_LAYERS},
+    "clay": {"plugin": "clay", "k": "4", "m": "2", "scalar_mds": "cuda"},
+}
+HOST_PROFILES = {
+    "isa": {"plugin": "isa", "k": "8", "m": "3"},
+    "shec": {"plugin": "shec"},
+    "lrc-kml": {"plugin": "lrc", "k": "4", "m": "2", "l": "3"},
+}
+
+
+def test_mon_without_a_card_accepts_cuda_pools(monkeypatch):
+    """A port mon on a host without CUDA accepts plugin=cuda pools, and
+    lrc and clay pools whose inner codecs are plugin=cuda; each completed
+    profile, size and stripe width equals what the reference's mon makes of
+    the same pool with plugin=tpu in plugin=cuda's place, and the host
+    plugins' profiles equal the reference's as they are."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mon, ref = Monitor(conf={}), RefMonitor(conf={})
+    for name, profile in {**CUDA_PROFILES, **HOST_PROFILES}.items():
+        reply = mon._create_pool(MCreatePool(name=name, profile=dict(profile)))
+        assert reply.ok, (name, reply.error)
+        ref_profile = {k: v.replace("cuda", "tpu") for k, v in profile.items()}
+        ref_reply = ref._create_pool(RefMCreatePool(name=name,
+                                                    profile=ref_profile))
+        assert ref_reply.ok, (name, ref_reply.error)
+        got, want = mon.osdmap.pool_by_name(name), ref.osdmap.pool_by_name(name)
+        assert {k: v.replace("cuda", "tpu") for k, v in got.profile.items()} \
+            == want.profile, name
+        assert (got.size, got.min_size, got.stripe_width) == \
+            (want.size, want.min_size, want.stripe_width), name
+
+
+def test_osd_builds_cuda_codecs_on_its_ec_device(monkeypatch):
+    """``osd_ec_device: cpu`` on a host without CUDA: every plugin=cuda codec
+    the OSD builds is on the CPU, the nested ones of lrc's layers and
+    clay's mds/pft included, with no plugin registered by hand."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("CEPH_TPU_FORCE_BATCH", raising=False)
+    monkeypatch.setattr(port_osd, "_BATCH_QUEUE", None)
+    monkeypatch.setattr(port_osd, "_PLANAR_STORE", None)
+    osd = port_osd.OSD(("127.0.0.1", 1), conf={"osd_ec_device": "cpu"})
+    for pool_id, (name, profile) in enumerate(CUDA_PROFILES.items(), 1):
+        codec = osd._codec(PoolInfo(pool_id=pool_id, name=name,
+                                    pool_type="ec", pg_num=1, size=6,
+                                    min_size=5, profile=dict(profile)))
+        inner = {"cuda": lambda: [codec],
+                 "lrc": lambda: [la.erasure_code for la in codec.layers],
+                 "clay": lambda: [codec.mds, codec.pft]}[name]()
+        for c in inner:
+            assert c.plugin_name == "cuda" and c.device == torch.device("cpu")
+
+
+def test_cluster_without_a_card_or_a_named_cpu_fails_at_start(monkeypatch):
+    """The mon no longer needs a card, but an OSD still does unless its
+    conf names the CPU: the cluster fails at start."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    async def go():
+        cluster = PortCluster(n_osds=3)
+        try:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                await cluster.start()
+        finally:
+            await cluster.stop()
+
+    run(go(), timeout=60)
+
+
+# -- clay sub-chunk recovery (tests/test_subchunk_recovery.py on the port) --
+
+def test_clay_single_shard_repair_moves_subchunk_bytes_only(port_cpu):
+    async def go():
+        cluster = PortCluster(n_osds=7, conf={
+            **FAST, "client_op_timeout": 30.0, "osd_auto_repair": False,
+            "osd_ec_device": "cpu"})
+        await cluster.start()
+        try:
+            c = await cluster.client()
+            pool = await c.create_pool("clay", profile={
+                "plugin": "clay", "k": "4", "m": "2"})
+            data = payload(200_000, seed=1)
+            await c.put(pool, "obj", data)
+            p = c.osdmap.pools[pool]
+            pg = c.osdmap.object_to_pg(p, "obj")
+            acting = c.osdmap.pg_to_acting(p, pg)
+            primary = cluster.osds[c.osdmap.primary_of(
+                acting, seed=(pool << 20) | pg)]
+            lost_shard, lost_osd = next(
+                (s, o) for s, o in enumerate(acting) if o >= 0)
+            victim = cluster.osds[lost_osd]
+            original = victim.store.read((pool, "obj", lost_shard))
+            blob_len = len(original[0])
+            txn = Transaction()
+            txn.delete((pool, "obj", lost_shard))
+            victim.store.queue_transaction(txn)
+            before = primary.perf.get("recovery_subchunk_bytes")
+            await c.repair_pool(pool)
+            for _ in range(100):  # pushes are fire-and-forget
+                restored = victim.store.read((pool, "obj", lost_shard))
+                if restored is not None:
+                    break
+                await asyncio.sleep(0.05)
+            assert restored is not None, "shard not repaired"
+            assert restored[0] == original[0], "repair not byte-identical"
+            moved = primary.perf.get("recovery_subchunk_bytes") - before
+            assert moved > 0, "sub-chunk path not taken"
+            # d=5 helpers ship blob/q (q=2) each, not whole chunks
+            assert moved <= 5 * blob_len // 2 + 1024, (moved, blob_len)
+            for o in cluster.osds.values():
+                o._extent_cache.clear()
+            assert await c.get(pool, "obj") == data
+            await c.stop()
+        finally:
+            await cluster.stop()
+
+    run(go(), timeout=90)
+
+
+# -- four pool layouts through the daemon, against a model ------------------
+
+LAYOUTS = {
+    "rs": {"plugin": "cuda", "technique": "reed_sol_van"},
+    "cauchy": {"plugin": "cuda", "technique": "cauchy_good",
+               "packetsize": "2048"},
+    "w16": {"plugin": "cuda", "technique": "reed_sol_van", "w": "16"},
+    "isa": {"plugin": "isa", "technique": "reed_sol_van"},
+}
+
+
+@pytest.mark.parametrize("arm", ["host", "device"])
+def test_pool_layouts_write_overwrite_and_degrade_against_a_model(
+        port_cpu, monkeypatch, arm):
+    """7 OSDs, k=4 m=2: a reed_sol_van, a cauchy_good (packet rows, K3), a
+    w=16 (the int8-plane lane) and an isa pool each take full writes and
+    partial overwrites (read-modify-write), then lose one OSD; every read,
+    before and after, equals the model."""
+    monkeypatch.setenv("CEPH_TPU_DEVICE_SLAB", "1" if arm == "device" else "0")
+    rng = np.random.default_rng(31)
+
+    async def go():
+        cluster = PortCluster(n_osds=7, conf={**FAST, "osd_auto_repair": False,
+                                              "osd_ec_device": "cpu"})
+        await cluster.start()
+        c = await cluster.client()
+        model = {}
+        try:
+            pools = {name: await c.create_pool(name, "ec", pg_num=4, profile={
+                **prof, "k": str(K), "m": str(M)})
+                for name, prof in LAYOUTS.items()}
+            for name, pool in pools.items():
+                for i in range(3):
+                    oid = f"{name}-{i}"
+                    model[pool, oid] = payload(int(rng.integers(1, 150_000)),
+                                               seed=int(rng.integers(1 << 30)))
+                    await c.put(pool, oid, model[pool, oid])
+                for i in range(3):
+                    oid = f"{name}-{i}"
+                    old = bytearray(model[pool, oid])
+                    off = int(rng.integers(0, len(old) + 1))
+                    new = payload(int(rng.integers(1, 20_000)),
+                                  seed=int(rng.integers(1 << 30)))
+                    old.extend(b"\0" * max(0, off + len(new) - len(old)))
+                    old[off:off + len(new)] = new
+                    model[pool, oid] = bytes(old)
+                    await c.put(pool, oid, new, offset=off)
+            for (pool, oid), want in model.items():
+                assert await c.get(pool, oid) == want, (pool, oid)
+            victim = c.osdmap.pg_to_acting(
+                c.osdmap.pools[pools["rs"]], 0)[0]
+            await cluster.kill_osd(victim)
+            await c.mark_osd_down(victim)
+            await c.refresh_map()
+            for (pool, oid), want in model.items():
+                assert await c.get(pool, oid) == want, ("degraded", pool, oid)
+        finally:
+            await c.stop()
+            await cluster.stop()
+
+    run(go(), timeout=120)
+    assert port_osd._BATCH_QUEUE.submits > 0

@@ -251,8 +251,9 @@ def test_sched_counters_move_as_the_reference(monkeypatch):
 # -- the plugin=cuda seams ----------------------------------------------------
 
 def port_codec(**profile):
-    return CudaPlugin(device="cpu").factory(
-        {"plugin": "cuda", **{k: str(v) for k, v in profile.items()}})
+    return CudaPlugin().factory(
+        {"plugin": "cuda", **{k: str(v) for k, v in profile.items()}},
+        device="cpu")
 
 
 def _spy(monkeypatch, name):

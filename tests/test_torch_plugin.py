@@ -39,7 +39,7 @@ def port(plugin_cls=CudaPlugin, **profile):
     profile = {k: str(v) for k, v in profile.items()}
     profile["plugin"] = "cuda" if plugin_cls is CudaPlugin else "jerasure"
     if plugin_cls is CudaPlugin:
-        return CudaPlugin(device="cpu").factory(profile)
+        return CudaPlugin().factory(profile, device="cpu")
     return plugin_cls().factory(profile)
 
 
@@ -183,7 +183,7 @@ def test_registry_resolves_cuda_plugin_on_its_default_device(monkeypatch):
         port_registry.factory("cuda", "", {"plugin": "cuda", "k": "4", "m": "2"})
     assert ei.value.errno_code == -errno.ENODEV
     with pytest.raises(ErasureCodeError) as ei:
-        CudaPlugin(device="cpu").factory({"technique": "nope"})
+        CudaPlugin().factory({"technique": "nope"}, device="cpu")
     assert ei.value.errno_code == -errno.ENOENT
 
 

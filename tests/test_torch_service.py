@@ -441,6 +441,29 @@ def test_span_events_match_the_references(queues):
     assert ("event", "ec batch dispatch", "launched") in logs[1]
 
 
+def test_counters_and_timeline_lead_the_futures(queues):
+    """A done-callback of a group's future already sees the group counted:
+    the port records dispatch_dev, group_size and the timeline entry before
+    the fan-out resolves the futures (the reference records them after, so
+    a read right after an op can miss it)."""
+    mb = lane_matrix("packedbit", 8)
+    q = queues(max_delay=60.0)
+    seen = []
+
+    def read(_fut):
+        d = q.perf.dump()
+        seen.append((d["dispatch_dev"]["avgcount"], d["group_size"]["sum"],
+                     [r["group_size"] for r in q.dump_timeline(8)]))
+
+    futs = [q.submit_packedbit(mb, b, 8, M)
+            for b in lane_inputs("packedbit", 8, seed=43)]
+    futs[0].add_done_callback(read)
+    q.flush()
+    for f in futs:
+        f.result(timeout=TIMEOUT)
+    assert seen == [(1, 3.0, [3])]
+
+
 def test_timeline_on_the_admin_socket(queues):
     class Asok:
         def register(self, name, fn, desc):

@@ -19,7 +19,7 @@ import pytest
 from ceph_tpu.rados.ecutil import HashInfo as RefHashInfo
 from ceph_tpu.tools import wire_corpus
 from ceph_tpu.utils import checksum as ref_checksum
-from ceph_tpu_torch.rados import types  # noqa: F401 (registers the message set)
+from ceph_tpu_torch.rados import types  # registers the message set
 from ceph_tpu_torch.rados.ecutil import HashInfo
 from ceph_tpu_torch.rados.messenger import decode_message, encode_payload_parts
 from ceph_tpu_torch.utils import checksum, wirepath
@@ -65,11 +65,9 @@ def test_corpus_frame_round_trips_through_port(name):
 
 GOLDEN_DIR = os.path.join(wire_corpus.CORPUS_DIR, "golden")
 # frames archived by older builds.  One (an MMapReply) pickles the
-# reference's OSDMap by its class path, which only ceph_tpu can resolve, so
-# it is the reference's own frame and is not replayed here.
-GOLDEN = sorted(n for n in os.listdir(GOLDEN_DIR) if n.endswith(".frame")
-                and b"ceph_tpu." not in open(os.path.join(GOLDEN_DIR, n),
-                                             "rb").read())
+# reference's OSDMap by its class path, ceph_tpu.rados.types: the port's
+# unpickler (rados/unpickle.py) reads it as ceph_tpu_torch.rados.types.
+GOLDEN = sorted(n for n in os.listdir(GOLDEN_DIR) if n.endswith(".frame"))
 
 
 @pytest.mark.parametrize("name", GOLDEN)
@@ -78,6 +76,20 @@ def test_golden_old_frame_decodes_through_port(name):
         type_id, version, fixed, payload, blob = split_frame(f.read())
     msg = decode_message(type_id, version, payload, blob, fixed)
     assert type(msg).__name__ == name.split(".")[0]
+    for value in msg.__dict__.values():
+        assert not type(value).__module__.startswith("ceph_tpu."), value
+
+
+def test_reference_class_paths_unpickle_to_the_port():
+    """A reference frame's typed field decodes into the port's class."""
+    frames = [n for n in GOLDEN if b"ceph_tpu." in
+              open(os.path.join(GOLDEN_DIR, n), "rb").read()]
+    assert frames  # the MMapReply frame
+    for name in frames:
+        with open(os.path.join(GOLDEN_DIR, name), "rb") as f:
+            type_id, version, fixed, payload, blob = split_frame(f.read())
+        msg = decode_message(type_id, version, payload, blob, fixed)
+        assert type(msg.osdmap) is types.OSDMap
 
 
 def test_checksum_kind_is_crc32c_on_both():
@@ -115,3 +127,38 @@ def test_hashinfo_matches_reference():
     dirty = HashInfo(6, 4096, [1, 2, 3, 4, 5, 6], dirty=True)
     assert dirty.encode() == RefHashInfo(6, 4096, [1, 2, 3, 4, 5, 6],
                                          dirty=True).encode()
+
+
+
+def test_reference_stores_read_back_through_the_port(tmp_path):
+    """A BlueStore written by ceph_tpu (its onodes pickle
+    ceph_tpu.rados.bluestore._Onode) opens and reads in the port, and a
+    reference PG log entry decodes as the port's."""
+    from ceph_tpu.rados.bluestore import BlueStore as RefBlueStore
+    from ceph_tpu.rados.pglog import LogEntry as RefLogEntry
+    from ceph_tpu.rados.store import ShardMeta as RefShardMeta
+    from ceph_tpu.rados.store import Transaction as RefTransaction
+    from ceph_tpu_torch.rados import bluestore
+    from ceph_tpu_torch.rados.bluestore import BlueStore
+    from ceph_tpu_torch.rados.pglog import LogEntry
+
+    ref = RefBlueStore(str(tmp_path / "osd"))
+    txn = RefTransaction()
+    data = np.random.default_rng(22).integers(0, 256, 70_000,
+                                              dtype=np.uint8).tobytes()
+    txn.write((1, "obj", 0), data, RefShardMeta(version=5,
+                                                object_size=len(data)))
+    ref.queue_transaction(txn)
+    ref.close()
+    store = BlueStore(str(tmp_path / "osd"))
+    try:
+        # the onode is the port's class, though ceph_tpu is importable here
+        assert all(type(o) is bluestore._Onode for o in store._onodes.values())
+        got = store.read((1, "obj", 0))
+        assert got is not None and bytes(got[0]) == data
+        assert (got[1].version, got[1].object_size) == (5, len(data))
+    finally:
+        store.close()
+    entry = RefLogEntry(version=(3, 7), op="write", oid="o", reqid="r")
+    back = LogEntry.decode(entry.encode())
+    assert type(back) is LogEntry and back.__dict__ == entry.__dict__
