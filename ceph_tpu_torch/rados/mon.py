@@ -1,8 +1,7 @@
 # Copy of ceph_tpu/rados/mon.py at commit 4ac5bd2, with its ceph_tpu
-# import statements rebound to ceph_tpu_torch.  A configured mgr is logged
-# as not ported (the mgr daemon is a later slice); pool profiles are checked
+# import statements rebound to ceph_tpu_torch.  Pool profiles are checked
 # with codecs built on the CPU; stored state unpickles through
-# common/unpickle.py.
+# rados/unpickle.py.
 """Monitor: cluster-map authority (maps only — never on the data path).
 
 Role-equivalent of the reference's mon (reference src/mon/Monitor.h:108):
@@ -40,7 +39,6 @@ from ceph_tpu_torch.common.context import Context
 from ceph_tpu_torch.common.perf_counters import PerfCountersBuilder
 from ceph_tpu_torch.ec.interface import ErasureCodeError
 from ceph_tpu_torch.ec.registry import registry
-from ceph_tpu_torch.rados import MGR_NOT_PORTED
 from ceph_tpu_torch.rados import unpickle
 from ceph_tpu_torch.rados.auth import KeyServer
 from ceph_tpu_torch.rados.clog import (
@@ -244,7 +242,6 @@ class Monitor:
         # serves at any mon without a leader round-trip.
         self._osd_dirty: Dict[int, List] = {}
         self._mgr_ticks = 0
-        self._mgr_missing_logged = False
         self._last_rotation = time.monotonic()
         # peer rank -> reachability EMA (ConnectionTracker role)
         self._conn_scores: Dict[int, float] = {}
@@ -1115,12 +1112,27 @@ class Monitor:
 
     async def _report_to_mgr(self) -> None:
         """Push perf/status to the mgr (MMgrReport flow, the OSD's
-        _report_to_mgr discipline) when one is configured.  The mgr daemon
-        is not ported yet, so a configured mgr_addr is logged as such and
-        nothing is sent."""
-        if self.conf.get("mgr_addr", "") and not self._mgr_missing_logged:
-            self._mgr_missing_logged = True
-            self.ctx.log.error("mon", MGR_NOT_PORTED)
+        _report_to_mgr discipline) when one is configured."""
+        raw = self.conf.get("mgr_addr", "")
+        if not raw:
+            return
+        try:
+            host, port = str(raw).rsplit(":", 1)
+            from ceph_tpu_torch.mgr.daemon import MMgrReport
+
+            await asyncio.wait_for(
+                self.messenger.send(
+                    (host, int(port)),
+                    MMgrReport(name=f"mon.{self.rank}",
+                               perf=self.ctx.perf.dump(),
+                               status=self.quorum_status(),
+                               stamp=time.time()),
+                    peer_type="mgr"),
+                timeout=2.0)  # a stalled mgr must not starve the tick
+        except TRANSPORT_ERRORS:
+            pass
+        except asyncio.TimeoutError:
+            pass
 
     # -- mon-mon send helpers ------------------------------------------------
 

@@ -3,8 +3,8 @@
 # differ: the daemon's device is ``osd_ec_device`` (the card unless the
 # conf names the CPU), which its codecs, the shared queue and the resident
 # store run on; the perf sets are the port's (``ec_cuda``, the cuda plugin's
-# ``ec_plugin``); a configured mgr is logged as not ported; and what it reads
-# from the wire unpickles through rados/unpickle.py.
+# ``ec_plugin``); and what it reads from the wire unpickles through
+# rados/unpickle.py.
 """OSD daemon: the EC data plane.
 
 Role-equivalent of the reference's OSD + ECBackend (reference
@@ -75,7 +75,6 @@ from ceph_tpu_torch.rados.clog import (LogClient, build_crash_report,
                                  replay_crash_spool, spool_crash)
 from ceph_tpu_torch.rados.messenger import (TRANSPORT_ERRORS, BufferList,
                                       Messenger, as_bytes)
-from ceph_tpu_torch.rados import MGR_NOT_PORTED
 from ceph_tpu_torch.rados import unpickle
 from ceph_tpu_torch.rados.monclient import MonTargets
 from ceph_tpu_torch.rados.peering import (
@@ -292,7 +291,6 @@ class OSD:
         osd_id: int = -1,
     ):
         self.conf = conf or {}
-        self._mgr_missing_logged = False
         # one mon addr or a monmap list; RPCs rotate on mon failure
         self.mons = MonTargets(mon_addr)
         self.store = store or MemStore()
@@ -1095,13 +1093,24 @@ class OSD:
 
     async def _report_to_mgr(self) -> None:
         """Push perf/status to the mgr (MMgrReport flow) when one is
-        configured (mgr_addr rides the centralized config).  The mgr
-        daemon is not ported yet, so a configured mgr_addr is logged as
-        such and nothing is sent."""
-        if self.conf.get("mgr_addr", "") and not self._mgr_missing_logged:
-            # the port has no mgr daemon yet: say so once, report nothing
-            self._mgr_missing_logged = True
-            self.ctx.log.error("osd", MGR_NOT_PORTED)
+        configured (mgr_addr rides the centralized config)."""
+        raw = self.conf.get("mgr_addr", "")
+        if not raw:
+            return
+        try:
+            host, port = str(raw).rsplit(":", 1)
+            from ceph_tpu_torch.mgr.daemon import MMgrReport
+
+            await asyncio.wait_for(
+                self.messenger.send(
+                    (host, int(port)),
+                    MMgrReport(name=f"osd.{self.osd_id}",
+                               perf=self.ctx.perf.dump(),
+                               status=self.status(), stamp=time.time()),
+                    peer_type="mgr"),
+                timeout=2.0)  # a stalled mgr must not starve mon pings
+        except TRANSPORT_ERRORS:
+            pass
 
     async def _heartbeat_loop(self, interval: float) -> None:
         """OSD<->OSD liveness (maybe_update_heartbeat_peers + heartbeat,

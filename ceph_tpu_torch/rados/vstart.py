@@ -1,6 +1,5 @@
 # Copy of ceph_tpu/rados/vstart.py at commit 4ac5bd2, with its ceph_tpu
-# import statements rebound to ceph_tpu_torch.  ``with_mgr=True`` raises
-# NotImplementedError: the mgr daemon is a later slice of the port.
+# import statements rebound to ceph_tpu_torch.
 """vstart: a whole cluster on loopback, in one event loop.
 
 The reference's developer/test workflow (src/vstart.sh and
@@ -18,7 +17,6 @@ import asyncio
 from typing import Dict, List, Optional
 
 from ceph_tpu_torch.rados.bluestore import BlueStore
-from ceph_tpu_torch.rados import MGR_NOT_IN_PORT
 from ceph_tpu_torch.rados.client import RadosClient
 from ceph_tpu_torch.rados.mon import Monitor
 from ceph_tpu_torch.rados.osd import OSD
@@ -29,8 +27,6 @@ class Cluster:
     def __init__(self, n_osds: int = 5, conf: Optional[dict] = None,
                  data_dir: Optional[str] = None, n_mons: int = 1,
                  with_mgr: bool = False):
-        if with_mgr:
-            raise NotImplementedError(MGR_NOT_IN_PORT)
         self.conf = conf or {}
         # colocated-daemon fast dispatch (messenger LocalConnection):
         # every daemon of an in-process cluster shares this process, so
@@ -60,8 +56,10 @@ class Cluster:
             self.conf["crash_dir"] = f"{data_dir}/crash"
         self.n_osds = n_osds
         self.n_mons = n_mons
+        self.with_mgr = with_mgr
         self.data_dir = data_dir
         self.mons: List[Monitor] = []
+        self.mgr = None
         self.osds: Dict[int, OSD] = {}
         self._next_store = 0  # monotonic: store dirs never reused after kills
 
@@ -106,6 +104,13 @@ class Cluster:
             for mon in self.mons:
                 await mon.start()
             await self.wait_for_quorum()
+        if self.with_mgr:
+            from ceph_tpu_torch.mgr.daemon import MgrDaemon
+
+            self.mgr = MgrDaemon(self.conf, mon_addrs=self.mon_addrs)
+            addr = await self.mgr.start()
+            # daemons discover the mgr through config (mgrmap role)
+            self.conf["mgr_addr"] = f"{addr[0]}:{addr[1]}"
         for i in range(self.n_osds):
             await self.add_osd()
 
@@ -158,6 +163,8 @@ class Cluster:
     async def stop(self) -> None:
         for osd in list(self.osds.values()):
             await osd.stop()
+        if self.mgr is not None:
+            await self.mgr.stop()
         for mon in self.mons:
             await mon.stop()
 

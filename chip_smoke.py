@@ -179,13 +179,40 @@ Phases; any failure exits nonzero before the result line is printed:
                from_packedbit_paged launched, no fallback.  Each line is
                "codecs {...}" or "osd-isa {...}" with the card's name and
                power limit.
-8. split    host prepare / host->device / kernel call (apply_packedbit,
+8. clients  the client APIs and the mgr on the daemon path: a vstart cluster
+            of one mon, 12 OSDs (MemStore, the default EC device conf) and
+            the mgr (OSDs report every third 0.2 s ping), one plugin=cuda
+            reed_sol_van k=8 m=3 pool of 16 PGs reached through librados,
+            every launch count set to 0 just before and read just after
+            (the "clients" run):
+            a. a 64 MiB RBD image (16 objects of 4 MiB, order=22) written
+               by one Image.write (16 write_fulls, one at a time) and read
+               whole: GB/s;
+            b. 16 seeded 64 KiB writes inside objects, each the OSD's
+               read-modify-write (rmw_partial must count 16): ms p50/p99;
+            c. snap_create, 4 writes after it, read_snap of the snapshot:
+               GB/s;
+            d. export_image of the snapshot and export_diff from it to the
+               head, import_image and apply_diff into a second image,
+               which must equal the first: MB/s of each side;
+            e. a RadosStriper round trip of a 24 MiB object: GB/s;
+            f. the OSD in the most acting sets killed, the image read
+               degraded: GB/s;
+            g. once every live OSD has reported after the last op, /metrics
+               scraped over the mgr's HTTP port: every live OSD's
+               ceph_ec_cuda_dispatch equals the queue's own dispatch count
+               (above 0), and ceph_health_status is present.
+            Every read is held against a model of the image.  The queue and
+            store must be on the card, no fallback counted, and K4 and the
+            paged K6 must launch.  Each line is "clients {...}" with the
+            card's name and power limit.
+9. split    host prepare / host->device / kernel call (apply_packedbit,
             the lane's one launch) / device->host of one 4 MiB encode (the
             codec API takes host bytes), and the device's busy share over
             back-to-back encodes from torch.profiler.
-9. report   the card, one {"kernels": [...]} line (each row's "launches" is
-            the sum of its counts in phases 3 to 7, "launches_by_run" the
-            eight runs), and the result line.
+10. report  the card, one {"kernels": [...]} line (each row's "launches" is
+            the sum of its counts in phases 3 to 8, "launches_by_run" the
+            nine runs), and the result line.
 """
 
 from __future__ import annotations
@@ -2403,6 +2430,249 @@ def phase_codecs(device, card):
             for name in counts}
 
 
+# ---------------------------------------------------------- phase clients --
+
+CLIENT_IMAGE_OBJECTS = 16    # a 64 MiB image of 4 MiB objects
+CLIENT_ORDER = 22            # rbd's default: objects of 2^22 bytes
+CLIENT_RMW_WRITES = 16
+CLIENT_RMW_BYTES = 64 << 10
+CLIENT_SNAP_WRITES = 4
+CLIENT_STRIPER_BYTES = 24 << 20
+
+
+async def _scrape(addr, path="/metrics") -> str:
+    """GET `path` from the mgr's HTTP frontend; the body."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection(*addr)
+    writer.write(f"GET {path} HTTP/1.1\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read(-1)
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    check(b" 200 " in head.split(b"\r\n")[0], f"mgr {path}: {head[:80]!r}")
+    return body.decode()
+
+
+def phase_clients(device, card):
+    """The client APIs and the mgr on the OSD daemon path: a vstart cluster
+    of one mon, OSD_COUNT OSDs (MemStore, the default EC device conf) and
+    the mgr, one plugin=cuda reed_sol_van k=8 m=3 pool of OSD_PG_NUM PGs
+    reached through librados; an RBD image of CLIENT_IMAGE_OBJECTS objects
+    of 2^CLIENT_ORDER bytes written, read, partly overwritten (RMW), snapshotted,
+    exported and imported into a second image, and read degraded after an
+    OSD is lost; a RadosStriper round trip; then the mgr's /metrics.  Every
+    read is held against a model of the image.  Returns each kernel's launch
+    count in this run."""
+    import asyncio
+
+    import torch
+
+    from ceph_tpu_torch.ec.plugins.cuda import PLUGIN_PERF
+    from ceph_tpu_torch.rados import osd as osdmod
+    from ceph_tpu_torch.rados.crush import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.rados.librados import Rados
+    from ceph_tpu_torch.rados.striper import RadosStriper
+    from ceph_tpu_torch.rados.vstart import Cluster
+    from ceph_tpu_torch.services import rbd_export
+    from ceph_tpu_torch.services.rbd import RBD
+
+    def emit(step, **numbers):
+        print("clients " + json.dumps({"step": step, **numbers,
+                                       "card": card}))
+
+    obj_bytes = 1 << CLIENT_ORDER
+    size = CLIENT_IMAGE_OBJECTS * obj_bytes
+    rng = np.random.default_rng(SEED + 12)
+    model = bytearray(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
+    conf = {"osd_ec_device": str(device), "osd_auto_repair": False,
+            "client_op_timeout": 60.0, "osd_heartbeat_interval": 0.2}
+    kind = torch.device(device).type
+
+    def patch_at(obj):
+        """A seeded offset inside object `obj` and CLIENT_RMW_BYTES of
+        data."""
+        off = obj * obj_bytes + int(rng.integers(0, obj_bytes
+                                                 - CLIENT_RMW_BYTES))
+        return off, rng.integers(0, 256, CLIENT_RMW_BYTES,
+                                 dtype=np.uint8).tobytes()
+
+    def osd_sum(cluster, name):
+        return sum(o.perf.get(name) for o in cluster.osds.values())
+
+    async def run():
+        cluster = Cluster(n_osds=OSD_COUNT, conf=dict(conf), with_mgr=True)
+        await cluster.start()
+        rados = await Rados(cluster.mon_addrs, dict(conf)).connect()
+        try:
+            queue, store = osdmod._BATCH_QUEUE, osdmod._PLANAR_STORE
+            check(queue is not None and queue.device.type == kind,
+                  f"clients: the OSDs' queue is not on {kind}: {queue}")
+            check(store is not None and store.device.type == kind
+                  and store.device_arm, "clients: the OSDs' resident store "
+                  f"is not on {kind}'s device arm")
+            await rados.pool_create("rbd", pg_num=OSD_PG_NUM,
+                                    profile=dict(OSD_POOL))
+            ioctx = await rados.open_ioctx("rbd")
+            rbd = RBD(ioctx)
+            img = await rbd.create("disk", size, order=CLIENT_ORDER)
+
+            async def read_image(image, snap=None):
+                t = time.perf_counter()
+                got = (await image.read_snap(snap, 0, size) if snap
+                       else await image.read(0, size))
+                wall = time.perf_counter() - t
+                return got, wall
+
+            # a. one sequential write of the whole image
+            t = time.perf_counter()
+            await img.write(0, bytes(model))
+            wall = time.perf_counter() - t
+            emit("image write", objects=CLIENT_IMAGE_OBJECTS,
+                 object_bytes=obj_bytes,
+                 GB_per_s=size / wall / 1e9, wall_s=wall)
+            # b. the whole image read back
+            got, wall = await read_image(img)
+            check(got == model, "clients: image read differs from the model")
+            emit("image read", GB_per_s=size / wall / 1e9, wall_s=wall)
+            # c. partial writes inside objects: the OSD's read-modify-write
+            rmw0 = osd_sum(cluster, "rmw_partial")
+            lat = []
+            for obj in rng.integers(0, CLIENT_IMAGE_OBJECTS,
+                                    CLIENT_RMW_WRITES):
+                off, data = patch_at(int(obj))
+                t = time.perf_counter()
+                await img.write(off, data)
+                lat.append((time.perf_counter() - t) * 1e3)
+                model[off:off + len(data)] = data
+            rmw = osd_sum(cluster, "rmw_partial") - rmw0
+            check(rmw == CLIENT_RMW_WRITES,
+                  f"clients: {rmw} RMW partial writes counted, "
+                  f"{CLIENT_RMW_WRITES} made")
+            got, _ = await read_image(img)
+            check(got == model, "clients: image differs after the RMW writes")
+            emit("rmw writes", writes=CLIENT_RMW_WRITES,
+                 bytes=CLIENT_RMW_BYTES,
+                 rmw_partial=rmw, **_pcts(lat))
+            # d. a snapshot, writes after it, and the snapshot read
+            snap_model = bytes(model)
+            await img.snap_create("s1")
+            for obj in rng.choice(CLIENT_IMAGE_OBJECTS, CLIENT_SNAP_WRITES,
+                                  replace=False):
+                off, data = patch_at(int(obj))
+                await img.write(off, data)
+                model[off:off + len(data)] = data
+            got, wall = await read_image(img, snap="s1")
+            check(got == snap_model, "clients: snapshot read differs")
+            emit("snapshot read", writes_after_snap=CLIENT_SNAP_WRITES,
+                 GB_per_s=size / wall / 1e9, wall_s=wall)
+            got, _ = await read_image(img)
+            check(got == model, "clients: head differs after the snapshot")
+            # e. export the snapshot and the diff from it, import both
+            full, delta = io.BytesIO(), io.BytesIO()
+            t = time.perf_counter()
+            await rbd_export.export_image(img, full, snap="s1")
+            await rbd_export.export_diff(img, delta, from_snap="s1")
+            export_s = time.perf_counter() - t
+            full.seek(0)
+            delta.seek(0)
+            t = time.perf_counter()
+            img2 = await rbd_export.import_image(rbd, "disk2", full,
+                                                 order=CLIENT_ORDER)
+            await rbd_export.apply_diff(img2, delta)
+            import_s = time.perf_counter() - t
+            streamed = len(full.getvalue()) + len(delta.getvalue())
+            got, _ = await read_image(img2)
+            check(got == model, "clients: the imported image differs")
+            emit("export import", stream_bytes=streamed,
+                 export_MB_per_s=streamed / export_s / 1e6,
+                 import_MB_per_s=streamed / import_s / 1e6,
+                 export_s=export_s, import_s=import_s)
+            # f. the striper
+            striper = RadosStriper(ioctx, object_size=obj_bytes)
+            blob = rng.integers(0, 256, CLIENT_STRIPER_BYTES,
+                                dtype=np.uint8).tobytes()
+            t = time.perf_counter()
+            await striper.write("striped", blob)
+            w_s = time.perf_counter() - t
+            t = time.perf_counter()
+            back = await striper.read("striped")
+            r_s = time.perf_counter() - t
+            check(back == blob, "clients: striped object read back wrong")
+            emit("striper", bytes=CLIENT_STRIPER_BYTES,
+                 write_GB_per_s=CLIENT_STRIPER_BYTES / w_s / 1e9,
+                 read_GB_per_s=CLIENT_STRIPER_BYTES / r_s / 1e9)
+            # g. lose the OSD in the most acting sets, read degraded
+            client = rados._client
+            p = client.osdmap.pools[ioctx.pool_id]
+            member = collections.Counter(
+                a for pg in range(p.pg_num)
+                for a in client.osdmap.pg_to_acting(p, pg)
+                if a != CRUSH_ITEM_NONE)
+            victim = min(member, key=lambda o: (-member[o], o))
+            await cluster.kill_osd(victim)
+            await client.mark_osd_down(victim)
+            await client.refresh_map()
+            got, wall = await read_image(img)
+            check(got == model, "clients: degraded image read differs")
+            emit("degraded read", lost_osd=victim,
+                 GB_per_s=size / wall / 1e9, wall_s=wall)
+            # h. the mgr: every live daemon reports again, then /metrics
+            mgr, t_last = cluster.mgr, time.time()
+            live = [f"osd.{i}" for i in sorted(cluster.osds)]
+            for _ in range(200):
+                if all(n in mgr.reports and mgr.reports[n].stamp > t_last
+                       for n in live):
+                    break
+                await asyncio.sleep(0.05)
+            else:
+                check(False, "clients: live OSDs did not report to the mgr")
+            text = await _scrape(mgr.http_addr)
+            dispatch = queue.perf.get("dispatch")
+            series = {ln.rsplit(" ", 1)[0]: ln.rsplit(" ", 1)[1]
+                      for ln in text.splitlines()
+                      if ln and not ln.startswith("#")}
+            check(dispatch > 0, "clients: the queue dispatched nothing")
+            for name in live:
+                got = series.get(f'ceph_ec_cuda_dispatch{{daemon="{name}"}}')
+                check(got is not None and float(got) == dispatch,
+                      f"clients: /metrics has ceph_ec_cuda_dispatch {got} "
+                      f"for {name}, the queue {dispatch}")
+            check("ceph_health_status" in series,
+                  "clients: /metrics has no ceph_health_status")
+            emit("mgr scrape", series=len(series), live_osds=len(live),
+                 ec_cuda_dispatch=dispatch,
+                 health_status=series["ceph_health_status"],
+                 reports=len(mgr.reports))
+            emit("counters", ec_cuda=queue.perf.dump(),
+                 ec_plugin=PLUGIN_PERF.dump(), pagestore=store.perf.dump())
+            return queue, store
+        finally:
+            await rados.shutdown()
+            await cluster.stop()
+
+    t_phase = time.perf_counter()
+    _zero_counts()
+    try:
+        queue, store = asyncio.run(asyncio.wait_for(run(), 300))
+        counts, _ = _read_counts(device, "(clients)")
+    finally:
+        if osdmod._BATCH_QUEUE is not None:
+            osdmod._BATCH_QUEUE.close()
+        osdmod._BATCH_QUEUE = osdmod._PLANAR_STORE = None
+    check(PLUGIN_PERF.get("cpu_fallback") == 0
+          and PLUGIN_PERF.get("device_failed") == 0,
+          "clients: the cuda plugin fell back or failed on the card")
+    check(queue.perf.get("breaker_fallback") == 0,
+          "clients: the queue's breaker served a group off the card")
+    for name in ("apply_packedbit", "from_packedbit_paged"):
+        check(counts[name] > 0, f"clients: {name} never launched")
+    emit("launches", k4_apply_packedbit=counts["apply_packedbit"],
+         k6_from_packedbit_paged=counts["from_packedbit_paged"])
+    print(f"clients: phase {time.perf_counter() - t_phase:.2f}s wall")
+    return counts
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -2440,6 +2710,8 @@ def main() -> int:
             counts[name]["osd"] = n
         for name, runs in phase_codecs("cuda", card).items():
             counts[name].update(runs)
+        for name, n in phase_clients("cuda", card).items():
+            counts[name]["clients"] = n
         phase_split("cuda")
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

@@ -701,3 +701,71 @@ def test_isa_pool_on_the_card_writes_residents_and_reads_them(card,
     finally:
         if osdmod._BATCH_QUEUE is not None:
             osdmod._BATCH_QUEUE.close()
+
+
+def test_rbd_image_on_the_card_reaches_the_mgr(card, monkeypatch):
+    """An rbd image on a plugin=cuda k=4 m=2 pool with the mgr: whole-object
+    writes encode on the card (K4), a partial write re-encodes through the
+    OSD's RMW, reads come from residents through the paged K6, and the
+    OSDs' ec_cuda counters reach the mgr's /metrics."""
+    import time
+
+    from ceph_tpu_torch.rados import osd as osdmod
+    from ceph_tpu_torch.rados.librados import Rados
+    from ceph_tpu_torch.rados.vstart import Cluster
+    from ceph_tpu_torch.services.rbd import RBD
+
+    monkeypatch.setattr(osdmod, "_BATCH_QUEUE", None)
+    monkeypatch.setattr(osdmod, "_PLANAR_STORE", None)
+    order, n_objects = 20, 4
+    size = n_objects << order
+    rng = np.random.default_rng(17)
+    model = bytearray(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
+    patch = rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+    conf = {"client_op_timeout": 30.0, "osd_auto_repair": False,
+            "osd_heartbeat_interval": 0.1}
+
+    async def go():
+        cluster = Cluster(n_osds=6, conf=dict(conf), with_mgr=True)
+        await cluster.start()
+        rados = await Rados(cluster.mon_addrs, dict(conf)).connect()
+        try:
+            await rados.pool_create("rbd", pg_num=4, profile={
+                "plugin": "cuda", "technique": "reed_sol_van",
+                "k": "4", "m": "2"})
+            img = await RBD(await rados.open_ioctx("rbd")).create(
+                "disk", size, order=order)
+            await img.write(0, bytes(model))
+            await img.write(5000, patch)
+            model[5000:5000 + len(patch)] = patch
+            got = await img.read(0, size)
+            rmw = sum(o.perf.get("rmw_partial")
+                      for o in cluster.osds.values())
+            mgr, t_last = cluster.mgr, time.time()
+            names = [f"osd.{i}" for i in cluster.osds]
+            for _ in range(100):
+                if all(n in mgr.reports and mgr.reports[n].stamp > t_last
+                       for n in names):
+                    break
+                await asyncio.sleep(0.05)
+            return got, rmw, mgr.prometheus_text(), names
+        finally:
+            await rados.shutdown()
+            await cluster.stop()
+
+    launches = cuda_packedbit.apply_packedbit, cuda_packedbit.from_packedbit_paged
+    for fn in launches:
+        fn.launches = 0
+    try:
+        got, rmw, text, names = asyncio.run(asyncio.wait_for(go(), 120))
+        assert got == bytes(model)
+        assert rmw == 1
+        assert all(fn.launches > 0 for fn in launches)
+        dispatch = osdmod._BATCH_QUEUE.perf.get("dispatch")
+        for name in names:
+            assert f'ceph_ec_cuda_dispatch{{daemon="{name}"}} {dispatch}' \
+                in text.splitlines()
+        assert osdmod._PLANAR_STORE.device.type == "cuda"
+    finally:
+        if osdmod._BATCH_QUEUE is not None:
+            osdmod._BATCH_QUEUE.close()

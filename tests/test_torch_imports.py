@@ -1,6 +1,7 @@
 """ceph_tpu_torch stands alone: it imports neither jax nor any ceph_tpu
 module, and its entry points resolve to the CUDA device unless told "cpu"."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -21,6 +22,8 @@ import ceph_tpu_torch.ec.plugins.isa
 import ceph_tpu_torch.ec.plugins.lrc
 import ceph_tpu_torch.ec.plugins.shec
 import ceph_tpu_torch.ec.plugins.xor
+import ceph_tpu_torch.mgr.daemon
+import ceph_tpu_torch.mgr.modules
 import ceph_tpu_torch.native.bridge
 import ceph_tpu_torch.ops.cuda_gf2
 import ceph_tpu_torch.ops.cuda_packedbit
@@ -29,15 +32,22 @@ import ceph_tpu_torch.parallel.service
 import ceph_tpu_torch.rados.bluestore
 import ceph_tpu_torch.rados.client
 import ceph_tpu_torch.rados.ecutil
+import ceph_tpu_torch.rados.librados
 import ceph_tpu_torch.rados.messenger
 import ceph_tpu_torch.rados.mon
+import ceph_tpu_torch.rados.neorados
 import ceph_tpu_torch.rados.osd
 import ceph_tpu_torch.rados.pagestore
 import ceph_tpu_torch.rados.reactor_proc
+import ceph_tpu_torch.rados.striper
 import ceph_tpu_torch.rados.unpickle
 import ceph_tpu_torch.rados.vstart
 import ceph_tpu_torch.services.cls
+import ceph_tpu_torch.services.rbd
+import ceph_tpu_torch.services.rbd_export
 import ceph_tpu_torch.tools.benchmark
+import ceph_tpu_torch.tools.rados
+import ceph_tpu_torch.tools.rbd
 import ceph_tpu_torch.utils.checksum
 import ceph_tpu_torch.utils.wirepath
 from ceph_tpu_torch.ec.registry import registry
@@ -58,6 +68,88 @@ def test_port_imports_neither_jax_nor_ceph_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"port pulled in: {out.stdout.strip()}"
+
+
+FORBIDDEN_TOPS = ("jax", "ceph_tpu")
+
+
+def forbidden_imports(source):
+    """Every module of jax or ceph_tpu (not ceph_tpu_torch) that `source`
+    imports: each name of an ``import`` list and each ``from`` module, at
+    any depth of nesting (the probe above sees only what one run imports,
+    and a function-level import runs only when its function is called), and
+    each constant name given to ``import_module`` or ``__import__``."""
+    names = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names.append(node.module)
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            names.append(node.args[0].value)
+    return [n for n in names if n.split(".")[0] in FORBIDDEN_TOPS]
+
+
+def port_sources():
+    """The port's package and chip_smoke.py, which is held to the same
+    rule."""
+    top = os.path.join(ROOT, "ceph_tpu_torch")
+    for dirpath, dirnames, filenames in os.walk(top):
+        dirnames[:] = [d for d in dirnames if not d.startswith(("_", "."))]
+        for name in filenames:
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_port_source_imports_jax_or_ceph_tpu():
+    sources = list(port_sources())
+    assert any(p.endswith(os.path.join("mgr", "daemon.py")) for p in sources)
+    assert os.path.isfile(sources[-1])
+    bad = {}
+    for path in sources:
+        with open(path) as f:
+            hits = forbidden_imports(f.read())
+        if hits:
+            bad[os.path.relpath(path, ROOT)] = hits
+    assert bad == {}
+
+
+@pytest.mark.parametrize("line,forbidden", [
+    ("from ceph_tpu.rados.types import MOSDOp", True),
+    ("        from ceph_tpu.rados import unpickle", True),
+    ("    import ceph_tpu.rados.osd as ref", True),
+    ("import jax", True),
+    ("    from jax import numpy as jnp", True),
+    ("import jax.numpy as jnp", True),
+    ("from ceph_tpu import rados", True),
+    ("import os, jax", True),
+    ("import numpy as np, ceph_tpu.rados", True),
+    ('importlib.import_module("ceph_tpu.rados.osd")', True),
+    ('__import__("jax")', True),
+    ("from ceph_tpu_torch.rados.types import MOSDOp", False),
+    ("    import ceph_tpu_torch.rados.osd", False),
+    ("import jaxtyping", False),
+    ("from . import jax", False),
+    ('importlib.import_module(f"ceph_tpu_torch.ec.plugins.{name}")', False),
+    ('MAGIC = b"ceph_tpu-rbd-diff-v1"', False),
+    ("# the reference imports ceph_tpu.rados here", False),
+])
+def test_import_scan_pattern(line, forbidden):
+    assert bool(forbidden_imports(line.strip() + "\n")) == forbidden
+
+
+def test_import_scan_sees_function_level_imports():
+    source = ("def f():\n"
+              "    if True:\n"
+              "        from ceph_tpu.rados.types import MOSDOp\n"
+              "    import os, jax.numpy\n")
+    assert sorted(forbidden_imports(source)) == ["ceph_tpu.rados.types",
+                                                 "jax.numpy"]
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

@@ -17,7 +17,8 @@ test (tests/test_subchunk_recovery.py) and a mixed-layout pool run (four
 pool layouts, full writes, partial overwrites and degraded reads against a
 model); a mon without a card that accepts plugin=cuda pools, OSDs that build
 codecs on their ``osd_ec_device``, an OSD that must refuse to start on a host
-without CUDA when no CPU is named, and the missing mgr.
+without CUDA when no CPU is named, and the mgr that vstart starts and the
+OSDs report to.
 """
 
 import asyncio
@@ -258,24 +259,63 @@ def test_shared_store_keeps_its_first_device(port_cpu, monkeypatch):
         port_osd.shared_planar_store(device="cuda")
 
 
-def test_cluster_with_mgr_raises():
-    with pytest.raises(NotImplementedError, match="mgr daemon"):
-        PortCluster(n_osds=1, with_mgr=True)
+def test_cluster_with_mgr_starts_and_scrapes(port_cpu):
+    """vstart starts the port's mgr before the OSDs and puts its address
+    in the conf; the OSDs and the mon report to it and /metrics serves
+    their sets over HTTP."""
+    async def go():
+        cluster = PortCluster(n_osds=3, with_mgr=True, conf={
+            "osd_ec_device": "cpu", "osd_heartbeat_interval": 0.1})
+        await cluster.start()
+        try:
+            mgr = cluster.mgr
+            assert cluster.conf["mgr_addr"] == \
+                f"{mgr.addr[0]}:{mgr.addr[1]}"
+            for _ in range(200):
+                if len(mgr.reports) >= 4:
+                    break
+                await asyncio.sleep(0.05)
+            assert sorted(mgr.reports) == ["mon.0", "osd.0", "osd.1", "osd.2"]
+            reader, writer = await asyncio.open_connection(*mgr.http_addr)
+            writer.write(b"GET /metrics HTTP/1.1\r\n\r\n")
+            await writer.drain()
+            head = await reader.readline()
+            body = await reader.read(-1)
+            writer.close()
+            assert b"200" in head
+            assert b"ceph_mgr_daemons_reporting 4" in body
+            assert b'ceph_osd_op_w{daemon="osd.0"}' in body
+        finally:
+            await cluster.stop()
+
+    run(go(), timeout=60)
 
 
-def test_configured_mgr_is_logged_once_and_nothing_sent(monkeypatch):
+def test_osd_sends_one_report_with_its_perf_dump_per_tick(monkeypatch):
+    """An OSD whose conf names a mgr sends it one MMgrReport per report
+    tick, carrying its perf dump and status."""
+    from ceph_tpu_torch.mgr.daemon import MMgrReport
+
     monkeypatch.setattr(port_osd, "_BATCH_QUEUE", None)
     monkeypatch.setattr(port_osd, "_PLANAR_STORE", None)
     osd = port_osd.OSD(("127.0.0.1", 1), conf={"osd_ec_device": "cpu",
-                                               "mgr_addr": "127.0.0.1:1"})
+                                               "mgr_addr": "127.0.0.1:7"})
     sent = []
-    monkeypatch.setattr(osd.messenger, "send",
-                        lambda *a, **k: sent.append(a))
-    for _ in range(3):
+
+    async def send(addr, msg, peer_type=None):
+        sent.append((addr, msg, peer_type))
+
+    monkeypatch.setattr(osd.messenger, "send", send)
+    for tick in range(3):
+        osd.perf.inc("op_w")
         asyncio.run(osd._report_to_mgr())
-    errors = [e[3] for e in osd.ctx.log._recent_errors]
-    assert errors.count(port_osd.MGR_NOT_PORTED) == 1
-    assert sent == []
+        assert len(sent) == tick + 1
+        addr, msg, peer_type = sent[-1]
+        assert (addr, peer_type) == (("127.0.0.1", 7), "mgr")
+        assert isinstance(msg, MMgrReport) and msg.name == "osd.-1"
+        assert msg.perf == osd.ctx.perf.dump()
+        assert msg.perf["osd"]["op_w"] == tick + 1
+        assert msg.status == osd.status()
 
 
 def test_pool_with_a_plugin_the_port_lacks_is_refused():
