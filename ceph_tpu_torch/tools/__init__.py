@@ -1,4 +1,7 @@
-"""Operator CLIs of the port: benchmark (ceph_erasure_code_benchmark)."""
+"""Operator CLIs of the port: benchmark (ceph_erasure_code_benchmark),
+rados and rbd (pool I/O and images), radosgw_admin (rgw users, quotas and
+usage) and cephfs_shell (one-shot file access over the cap-aware
+client)."""
 
 import sys
 from typing import Dict, List

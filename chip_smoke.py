@@ -206,13 +206,39 @@ Phases; any failure exits nonzero before the result line is printed:
             store must be on the card, no fallback counted, and K4 and the
             paged K6 must launch.  Each line is "clients {...}" with the
             card's name and power limit.
-9. split    host prepare / host->device / kernel call (apply_packedbit,
+9. services the object gateway and CephFS on the daemon path: phase 8's
+            cluster (12 OSDs, the mgr, the default EC device conf), its
+            plugin=cuda k=8 m=3 pool of 16 PGs as the data pool and a
+            replicated metadata pool, every launch count set to 0 just
+            before and read just after (the "services" run):
+            a. RGW on the data pool with 4 MiB stripes (rgw_obj_stripe_size),
+               through its HTTP frontend with SigV4 as a user RgwAdmin
+               made: 16 PUTs of 4 MiB (the bucket index is the EC pool's
+               client-side read-modify-write: its write_fulls per PUT are
+               counted), a multipart upload of 4 parts of 8 MiB, a LIST,
+               16 GETs, 16 range GETs of 1 MiB and the multipart GET: GB/s
+               and range ms p50/p99, and a PUT's and a GET's data-pool ops
+               by method and object (stripe piece, striper header, index,
+               datalog, bucket meta): count and ms a request;
+            b. CephFS: MDSCluster(n_ranks=2) over the metadata and data
+               pools through CephFSMultiClient, /d1 exported to rank 1
+               (ms), 8 files of 8 MiB written and read (GB/s), a snapshot
+               and a write after it, a rename across ranks, replace_rank(1)
+               (its journal replay, ms);
+            c. the OSD in the most acting sets lost, every object and file
+               read again (degraded GB/s).
+            Every read is held against a seeded model.  The queue and store
+            must be on the card, no fallback counted, K4 and the paged K6
+            must launch; slab_install and slab_gather calls are counted.
+            Each line is "services {...}" with the card's name and power
+            limit.
+10. split   host prepare / host->device / kernel call (apply_packedbit,
             the lane's one launch) / device->host of one 4 MiB encode (the
             codec API takes host bytes), and the device's busy share over
             back-to-back encodes from torch.profiler.
-10. report  the card, one {"kernels": [...]} line (each row's "launches" is
-            the sum of its counts in phases 3 to 8, "launches_by_run" the
-            nine runs), and the result line.
+11. report  the card, one {"kernels": [...]} line (each row's "launches" is
+            the sum of its counts in phases 3 to 9, "launches_by_run" the
+            ten runs), and the result line.
 """
 
 from __future__ import annotations
@@ -2673,6 +2699,370 @@ def phase_clients(device, card):
     return counts
 
 
+# --------------------------------------------------------- phase services --
+
+SERVICE_STRIPE = 4 << 20     # rgw_obj_stripe_size and CephFS's object size
+SERVICE_PUTS = 16            # S3 objects of one stripe
+SERVICE_PARTS = 4            # multipart parts ...
+SERVICE_PART_BYTES = 8 << 20  # ... of 8 MiB (S3's smallest part is 5 MiB)
+SERVICE_RANGE_BYTES = 1 << 20
+SERVICE_FILES = 8            # CephFS files ...
+SERVICE_FILE_BYTES = 8 << 20  # ... of two objects each
+
+
+async def _http(addr, method, target, body=b"", headers=None):
+    """One HTTP/1.1 exchange with an RGW frontend: (status, headers,
+    payload)."""
+    import asyncio
+
+    hdrs = {"content-length": str(len(body)), **(headers or {})}
+    reader, writer = await asyncio.open_connection(*addr)
+    writer.write(f"{method} {target} HTTP/1.1\r\n".encode()
+                 + "".join(f"{k}: {v}\r\n" for k, v in hdrs.items()).encode()
+                 + b"\r\n" + body)
+    await writer.drain()
+    status = (await reader.readline()).decode()
+    got = {}
+    while True:
+        line = await reader.readline()
+        if line in (b"\r\n", b"\n", b""):
+            break
+        k, _, v = line.decode().partition(":")
+        got[k.strip().lower()] = v.strip()
+    n = int(got.get("content-length", 0))
+    payload = await reader.readexactly(n) if n else b""
+    writer.close()
+    return status.split(" ", 1)[1].strip(), got, payload
+
+
+def phase_services(device, card):
+    """The object gateway and CephFS on the OSD daemon path: phase_clients's
+    cluster (OSD_COUNT OSDs on MemStore, the mgr, the default EC device
+    conf), its plugin=cuda k=8 m=3 pool of OSD_PG_NUM PGs as the data pool
+    and a replicated metadata pool.  RGW on the data pool with 4 MiB stripes
+    through its HTTP frontend, SigV4 as a user RgwAdmin made: SERVICE_PUTS
+    PUTs of a stripe, a multipart upload of SERVICE_PARTS parts of
+    SERVICE_PART_BYTES, a LIST, GETs, 1 MiB range GETs and the multipart
+    GET.  CephFS over MDSCluster(n_ranks=2) through CephFSMultiClient: two
+    directories, one exported to rank 1, SERVICE_FILES files of
+    SERVICE_FILE_BYTES written and read, a snapshot, a rename across ranks,
+    replace_rank(1).  Then the OSD in the most acting sets is lost and every
+    object and file is read again.  Every read is held against a seeded
+    model.  Returns each kernel's launch count in this run."""
+    import asyncio
+
+    import torch
+
+    from ceph_tpu_torch.ec.plugins.cuda import PLUGIN_PERF
+    from ceph_tpu_torch.ops import slab
+    from ceph_tpu_torch.rados import osd as osdmod
+    from ceph_tpu_torch.rados.crush import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.rados.librados import Rados
+    from ceph_tpu_torch.rados.vstart import Cluster
+    from ceph_tpu_torch.services import rgw
+    from ceph_tpu_torch.services.mds_cluster import (CephFSMultiClient,
+                                                     MDSCluster)
+
+    def emit(step, **numbers):
+        print("services " + json.dumps({"step": step, **numbers,
+                                        "card": card}))
+
+    rng = np.random.default_rng(SEED + 13)
+
+    def seeded(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    objects = {f"obj{i:02d}": seeded(SERVICE_STRIPE)
+               for i in range(SERVICE_PUTS)}
+    parts = [seeded(SERVICE_PART_BYTES) for _ in range(SERVICE_PARTS)]
+    files = {f"/d{i % 2}/f{i}": seeded(SERVICE_FILE_BYTES)
+             for i in range(SERVICE_FILES)}
+    conf = {"osd_ec_device": str(device), "osd_auto_repair": False,
+            "client_op_timeout": 60.0, "osd_heartbeat_interval": 0.2}
+    kind = torch.device(device).type
+    slab_calls = {"slab_install": [0], "slab_gather": [0]}
+
+    def gbps(nbytes, wall):
+        return {"GB_per_s": nbytes / wall / 1e9, "wall_s": wall}
+
+    async def run():
+        cluster = Cluster(n_osds=OSD_COUNT, conf=dict(conf), with_mgr=True)
+        await cluster.start()
+        rados = await Rados(cluster.mon_addrs, dict(conf)).connect()
+        frontend = None
+        try:
+            queue, store = osdmod._BATCH_QUEUE, osdmod._PLANAR_STORE
+            check(queue is not None and queue.device.type == kind,
+                  f"services: the OSDs' queue is not on {kind}: {queue}")
+            check(store is not None and store.device.type == kind
+                  and store.device_arm, "services: the OSDs' resident "
+                  f"store is not on {kind}'s device arm")
+            await rados.pool_create("data", pg_num=OSD_PG_NUM,
+                                    profile=dict(OSD_POOL))
+            await rados.pool_create("meta", pool_type="replicated",
+                                    profile={"size": "3"})
+            data = await rados.open_ioctx("data")
+            meta = await rados.open_ioctx("meta")
+            index_writes = [0]
+            op_spans = collections.defaultdict(lambda: [0, 0.0])
+
+            def op_class(oid):
+                if oid.startswith(".bucket.index."):
+                    return "index"
+                if oid == ".rgw.datalog":
+                    return "datalog"
+                if oid.startswith(".bucket.meta."):
+                    return "bucket_meta"
+                if oid.endswith(".__striper__"):
+                    return "stripe_header"
+                return "stripe_piece" if "/" in oid else "other"
+
+            def timed(method):
+                real = getattr(data, method)
+
+                async def call(oid, *a, **kw):
+                    if method == "write_full" and op_class(oid) == "index":
+                        index_writes[0] += 1
+                    t = time.perf_counter()
+                    try:
+                        return await real(oid, *a, **kw)
+                    finally:
+                        span = op_spans[f"{method} {op_class(oid)}"]
+                        span[0] += 1
+                        span[1] += time.perf_counter() - t
+
+                setattr(data, method, call)
+
+            for method in ("read", "write_full", "remove", "execute"):
+                timed(method)
+
+            def op_split(n):
+                """The data pool's ops since the last call, by method and
+                object class: count and ms per request (one request in
+                flight, so the spans add up)."""
+                out = {name: {"ops": c / n, "ms": sec * 1e3 / n}
+                       for name, (c, sec) in sorted(op_spans.items())}
+                op_spans.clear()
+                return out
+            svc = rgw.RgwService(data, chunk_size=SERVICE_STRIPE)
+            user = await rgw.RgwAdmin(svc).user_create("smoke", "Smoke")
+            ak, sk = user["access_key"], user["secret_key"]
+            frontend = rgw.RgwFrontend(svc)
+            addr = await frontend.start()
+            host = f"{addr[0]}:{addr[1]}"
+
+            async def s3(method, path, body=b"", query="", headers=None,
+                         want="200"):
+                hdrs = {"host": host, "content-length": str(len(body)),
+                        **(headers or {})}
+                hdrs.update(rgw.sign_request(ak, sk, method, path, query,
+                                             hdrs, body))
+                target = path + (f"?{query}" if query else "")
+                st, h, payload = await _http(addr, method, target, body,
+                                             hdrs)
+                check(st.startswith(want),
+                      f"services: {method} {target}: {st} {payload[:120]!r}")
+                return h, payload
+
+            async def get_all(step, after_plain=lambda wall: None):
+                t = time.perf_counter()
+                for key, blob in objects.items():
+                    _, got = await s3("GET", f"/bkt/{key}")
+                    check(got == blob, f"services {step}: {key} differs")
+                wall = time.perf_counter() - t
+                after_plain(wall)
+                t = time.perf_counter()
+                _, got = await s3("GET", "/bkt/multi")
+                mwall = time.perf_counter() - t
+                check(got == b"".join(parts),
+                      f"services {step}: the multipart object differs")
+                return wall, mwall
+
+            def route_read(mc, path):
+                return mc.route(path)[1].fs.read_file(path)
+
+            async def read_files(mc, step):
+                t = time.perf_counter()
+                for path, blob in files.items():
+                    got = await route_read(mc, path)
+                    check(got == blob, f"services {step}: {path} differs")
+                return time.perf_counter() - t
+
+            # a. S3: a bucket and SERVICE_PUTS PUTs of a stripe
+            await s3("PUT", "/bkt")
+            op_split(1)
+            index0 = index_writes[0]
+            lat = []
+            t = time.perf_counter()
+            for key, blob in objects.items():
+                t1 = time.perf_counter()
+                await s3("PUT", f"/bkt/{key}", blob)
+                lat.append((time.perf_counter() - t1) * 1e3)
+            wall = time.perf_counter() - t
+            per_put = (index_writes[0] - index0) / SERVICE_PUTS
+            check(per_put >= 1, "services: a PUT updated no bucket index")
+            emit("put", objects=SERVICE_PUTS, object_bytes=SERVICE_STRIPE,
+                 index_write_fulls_per_put=per_put, **_pcts(lat),
+                 **gbps(SERVICE_PUTS * SERVICE_STRIPE, wall))
+            emit("put ops", per_put=op_split(SERVICE_PUTS),
+                 put_ms=wall * 1e3 / SERVICE_PUTS)
+            # b. a multipart upload
+            t = time.perf_counter()
+            _, body = await s3("POST", "/bkt/multi", query="uploads")
+            upload = json.loads(body)["UploadId"]
+            for n, part in enumerate(parts, start=1):
+                await s3("PUT", "/bkt/multi", part,
+                         query=f"uploadId={upload}&partNumber={n}")
+            _, body = await s3("POST", "/bkt/multi", query=f"uploadId={upload}")
+            wall = time.perf_counter() - t
+            check(json.loads(body)["ETag"].endswith(f"-{SERVICE_PARTS}"),
+                  f"services: multipart ETag {body!r}")
+            emit("multipart", parts=SERVICE_PARTS,
+                 part_bytes=SERVICE_PART_BYTES,
+                 **gbps(SERVICE_PARTS * SERVICE_PART_BYTES, wall))
+            # c. LIST
+            t = time.perf_counter()
+            _, body = await s3("GET", "/bkt")
+            listing = json.loads(body)
+            check(sorted(listing) == sorted([*objects, "multi"])
+                  and all(listing[k]["size"] == SERVICE_STRIPE
+                          for k in objects),
+                  f"services: LIST gave {sorted(listing)[:4]}...")
+            emit("list", keys=len(listing),
+                 ms=(time.perf_counter() - t) * 1e3)
+            # d. GETs and the multipart GET
+            op_split(1)
+            wall, mwall = await get_all("get", lambda wall: emit(
+                "get ops", per_get=op_split(SERVICE_PUTS),
+                get_ms=wall * 1e3 / SERVICE_PUTS))
+            emit("get", objects=SERVICE_PUTS,
+                 **gbps(SERVICE_PUTS * SERVICE_STRIPE, wall),
+                 multipart_GB_per_s=SERVICE_PARTS * SERVICE_PART_BYTES
+                 / mwall / 1e9)
+            # e. range GETs of 1 MiB
+            lat = []
+            for key, blob in objects.items():
+                off = int(rng.integers(0, SERVICE_STRIPE - SERVICE_RANGE_BYTES))
+                end = off + SERVICE_RANGE_BYTES - 1
+                t1 = time.perf_counter()
+                h, got = await s3("GET", f"/bkt/{key}", want="206",
+                                  headers={"range": f"bytes={off}-{end}"})
+                lat.append((time.perf_counter() - t1) * 1e3)
+                check(got == blob[off:end + 1]
+                      and h["content-range"]
+                      == f"bytes {off}-{end}/{SERVICE_STRIPE}",
+                      f"services: range GET of {key} at {off} differs")
+            emit("range get", gets=SERVICE_PUTS,
+                 range_bytes=SERVICE_RANGE_BYTES, **_pcts(lat))
+            # f. CephFS: two ranks, /d1 exported to rank 1
+            mc = await MDSCluster(meta, data, n_ranks=2).start()
+            fsc = CephFSMultiClient(mc, "smoke", renew_interval=0.01)
+            for d in ("/d0", "/d1"):
+                await fsc.mkdir(d)
+            t = time.perf_counter()
+            export = asyncio.create_task(mc.export_dir("/d1", 1))
+            while not export.done():  # the holder complies on renewal
+                await fsc.renew_all()
+                await asyncio.sleep(0.01)
+            await export
+            export_ms = (time.perf_counter() - t) * 1e3
+            check(mc.rank_of("/d1/f1") == 1 and mc.rank_of("/d0/f0") == 0,
+                  "services: /d1 did not move to rank 1")
+            t = time.perf_counter()
+            for path, blob in files.items():
+                await fsc.write(path, blob)
+                await fsc.fsync(path)
+            wall = time.perf_counter() - t
+            emit("fs write", files=SERVICE_FILES,
+                 file_bytes=SERVICE_FILE_BYTES, export_ms=export_ms,
+                 **gbps(SERVICE_FILES * SERVICE_FILE_BYTES, wall))
+            wall = await read_files(mc, "fs read")
+            emit("fs read", **gbps(SERVICE_FILES * SERVICE_FILE_BYTES, wall))
+            # g. a snapshot, a write after it, a rename across ranks
+            await fsc.snap_create("/d0", "s")
+            old = files["/d0/f0"]
+            files["/d0/f0"] = seeded(SERVICE_FILE_BYTES)
+            await fsc.write("/d0/f0", files["/d0/f0"])
+            await fsc.fsync("/d0/f0")
+            check(await fsc.read_snap("/d0", "s", "f0") == old,
+                  "services: the snapshot lost f0's old bytes")
+            t = time.perf_counter()
+            await fsc.rename("/d0/f2", "/d1/f2-moved")
+            rename_ms = (time.perf_counter() - t) * 1e3
+            files["/d1/f2-moved"] = files.pop("/d0/f2")
+            check("f2" not in await fsc.listdir("/d0")
+                  and "f2-moved" in await fsc.listdir("/d1"),
+                  "services: the cross-rank rename did not land once")
+            await fsc.unmount()
+            # h. rank 1 replaced: its journal replayed
+            t = time.perf_counter()
+            await mc.replace_rank(1)
+            replace_ms = (time.perf_counter() - t) * 1e3
+            wall = await read_files(mc, "after replace_rank")
+            emit("mds", snapshot="s", rename_across_ranks_ms=rename_ms,
+                 replace_rank_ms=replace_ms,
+                 read_after_replace_GB_per_s=SERVICE_FILES
+                 * SERVICE_FILE_BYTES / wall / 1e9)
+            # i. lose the OSD in the most acting sets; read everything again
+            client = rados._client
+            p = client.osdmap.pools[data.pool_id]
+            member = collections.Counter(
+                a for pg in range(p.pg_num)
+                for a in client.osdmap.pg_to_acting(p, pg)
+                if a != CRUSH_ITEM_NONE)
+            victim = min(member, key=lambda o: (-member[o], o))
+            await cluster.kill_osd(victim)
+            await client.mark_osd_down(victim)
+            await client.refresh_map()
+            wall, mwall = await get_all("degraded get")
+            fs_wall = await read_files(mc, "degraded fs read")
+            emit("degraded", lost_osd=victim,
+                 get_GB_per_s=SERVICE_PUTS * SERVICE_STRIPE / wall / 1e9,
+                 multipart_GB_per_s=SERVICE_PARTS * SERVICE_PART_BYTES
+                 / mwall / 1e9,
+                 fs_read_GB_per_s=SERVICE_FILES * SERVICE_FILE_BYTES
+                 / fs_wall / 1e9)
+            emit("counters", ec_cuda=queue.perf.dump(),
+                 ec_plugin=PLUGIN_PERF.dump(), pagestore=store.perf.dump())
+            return queue, store, index_writes[0]
+        finally:
+            if frontend is not None:
+                await frontend.stop()
+            await rados.shutdown()
+            await cluster.stop()
+
+    t_phase = time.perf_counter()
+    _zero_counts()
+    try:
+        with _counting(slab, "slab_install", slab_calls["slab_install"]), \
+                _counting(slab, "slab_gather", slab_calls["slab_gather"]):
+            queue, store, index_writes = asyncio.run(
+                asyncio.wait_for(run(), 300))
+        counts, _ = _read_counts(device, "(services)")
+    finally:
+        if osdmod._BATCH_QUEUE is not None:
+            osdmod._BATCH_QUEUE.close()
+        osdmod._BATCH_QUEUE = osdmod._PLANAR_STORE = None
+    check(PLUGIN_PERF.get("cpu_fallback") == 0
+          and PLUGIN_PERF.get("device_failed") == 0,
+          "services: the cuda plugin fell back or failed on the card")
+    check(queue.perf.get("breaker_fallback") == 0,
+          "services: the queue's breaker served a group off the card")
+    check(queue.perf.get("dispatch") > 0, "services: the queue dispatched "
+          "nothing")
+    for name in ("apply_packedbit", "from_packedbit_paged"):
+        check(counts[name] > 0, f"services: {name} never launched")
+    check(store.device_installs > 0, "services: no device-native install")
+    emit("launches", k4_apply_packedbit=counts["apply_packedbit"],
+         k6_from_packedbit_paged=counts["from_packedbit_paged"],
+         slab_install=slab_calls["slab_install"][0],
+         slab_gather=slab_calls["slab_gather"][0],
+         device_installs=store.device_installs,
+         index_write_fulls=index_writes)
+    print(f"services: phase {time.perf_counter() - t_phase:.2f}s wall")
+    return counts
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -2712,6 +3102,8 @@ def main() -> int:
             counts[name].update(runs)
         for name, n in phase_clients("cuda", card).items():
             counts[name]["clients"] = n
+        for name, n in phase_services("cuda", card).items():
+            counts[name]["services"] = n
         phase_split("cuda")
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

@@ -769,3 +769,101 @@ def test_rbd_image_on_the_card_reaches_the_mgr(card, monkeypatch):
     finally:
         if osdmod._BATCH_QUEUE is not None:
             osdmod._BATCH_QUEUE.close()
+
+
+def test_rgw_and_cephfs_on_the_card_equal_their_jerasure_twin(card,
+                                                              monkeypatch):
+    """S3 objects of 4 MiB (rgw's stripe) and one CephFS file on a
+    plugin=cuda k=4 m=2 pool on the card, and the same script on a CPU
+    plugin=jerasure twin pool of the same cluster: every read equals the
+    data, both pools hold the same objects with the same bytes, each
+    OSD's shard of an EC object on the card equals the jerasure codec's,
+    and the card's writes launch K4 and its resident reads the paged K6."""
+    import types
+
+    from ceph_tpu_torch.ec.registry import registry
+    from ceph_tpu_torch.rados import osd as osdmod
+    from ceph_tpu_torch.rados.librados import Rados
+    from ceph_tpu_torch.rados.vstart import Cluster
+    from ceph_tpu_torch.services import mds, rgw
+
+    monkeypatch.setattr(osdmod, "_BATCH_QUEUE", None)
+    monkeypatch.setattr(osdmod, "_PLANAR_STORE", None)
+    ids = iter(range(1 << 30))
+    monkeypatch.setattr(mds, "uuid", types.SimpleNamespace(
+        uuid4=lambda: types.SimpleNamespace(hex=f"{next(ids):032x}")))
+    monkeypatch.setattr(mds, "time", types.SimpleNamespace(time=lambda: 0.0))
+    monkeypatch.setattr(rgw, "time", types.SimpleNamespace(time=lambda: 0.0))
+    stripe = 4 << 20
+    rng = np.random.default_rng(19)
+    objects = {f"o{i}": rng.integers(0, 256, stripe, dtype=np.uint8)
+               .tobytes() for i in range(2)}
+    file_bytes = rng.integers(0, 256, stripe + 4096,
+                              dtype=np.uint8).tobytes()
+    profiles = {"cu": "cuda", "jer": "jerasure"}
+    conf = {"client_op_timeout": 30.0, "osd_auto_repair": False}
+
+    async def script(ioctx):
+        svc = rgw.RgwService(ioctx, chunk_size=stripe)
+        await svc.create_bucket("b")
+        for key, data in objects.items():
+            await svc.put_object("b", key, data)
+        fs = mds.FileSystem(ioctx)
+        await fs.mkfs()
+        await fs.mkdir("/d")
+        await fs.write_file("/d/f", file_bytes)
+        return ([await svc.get_object("b", key) for key in objects],
+                await fs.read_file("/d/f"))
+
+    async def go():
+        cluster = Cluster(n_osds=6, conf=dict(conf))
+        await cluster.start()
+        rados = await Rados(cluster.mon_addrs, dict(conf)).connect()
+        try:
+            out = {}
+            for pool, plugin in profiles.items():
+                await rados.pool_create(pool, pg_num=4, profile={
+                    "plugin": plugin, "technique": "reed_sol_van",
+                    "k": "4", "m": "2"})
+                ioctx = await rados.open_ioctx(pool)
+                nonlocal ids
+                ids = iter(range(1 << 30))
+                reads = await script(ioctx)
+                names = sorted(await ioctx.list_objects())
+                out[pool] = (reads, {n: await ioctx.read(n) for n in names},
+                             ioctx.pool_id)
+            osd0 = next(iter(cluster.osds.values()))
+            sinfo = osd0._sinfo(rados._client.osdmap.pools[out["cu"][2]])
+            shards = {}
+            for oid in out["cu"][1]:
+                for o in cluster.osds.values():
+                    for s in range(6):
+                        got = o.store.read((out["cu"][2], oid, s))
+                        if got is not None:
+                            shards[(oid, s)] = bytes(got[0])
+            return out, sinfo, shards
+        finally:
+            await rados.shutdown()
+            await cluster.stop()
+
+    launches = cuda_packedbit.apply_packedbit, cuda_packedbit.from_packedbit_paged
+    for fn in launches:
+        fn.launches = 0
+    try:
+        out, sinfo, shards = asyncio.run(asyncio.wait_for(go(), 180))
+        for pool in profiles:
+            reads, files = out[pool][0]
+            assert reads == list(objects.values()) and files == file_bytes
+        assert out["cu"][1] == out["jer"][1]
+        cpu = registry.factory("jerasure", "", {
+            "plugin": "jerasure", "technique": "reed_sol_van",
+            "k": "4", "m": "2"})
+        assert shards
+        for (oid, s), got in shards.items():
+            want = ecutil.batched_encode(cpu, sinfo, out["cu"][1][oid])
+            assert got == bytes(want[s]), (oid, s)
+        assert all(fn.launches > 0 for fn in launches)
+        assert osdmod._PLANAR_STORE.device.type == "cuda"
+    finally:
+        if osdmod._BATCH_QUEUE is not None:
+            osdmod._BATCH_QUEUE.close()

@@ -43,9 +43,14 @@ import ceph_tpu_torch.rados.striper
 import ceph_tpu_torch.rados.unpickle
 import ceph_tpu_torch.rados.vstart
 import ceph_tpu_torch.services.cls
+import ceph_tpu_torch.services.mds
+import ceph_tpu_torch.services.mds_cluster
 import ceph_tpu_torch.services.rbd
 import ceph_tpu_torch.services.rbd_export
+import ceph_tpu_torch.services.rgw
 import ceph_tpu_torch.tools.benchmark
+import ceph_tpu_torch.tools.cephfs_shell
+import ceph_tpu_torch.tools.radosgw_admin
 import ceph_tpu_torch.tools.rados
 import ceph_tpu_torch.tools.rbd
 import ceph_tpu_torch.utils.checksum
@@ -108,7 +113,11 @@ def port_sources():
 
 def test_no_port_source_imports_jax_or_ceph_tpu():
     sources = list(port_sources())
-    assert any(p.endswith(os.path.join("mgr", "daemon.py")) for p in sources)
+    for sentinel in (("mgr", "daemon.py"), ("services", "rgw.py"),
+                     ("services", "mds.py"), ("services", "mds_cluster.py"),
+                     ("tools", "radosgw_admin.py"),
+                     ("tools", "cephfs_shell.py")):
+        assert any(p.endswith(os.path.join(*sentinel)) for p in sources)
     assert os.path.isfile(sources[-1])
     bad = {}
     for path in sources:
@@ -175,6 +184,23 @@ def test_reactor_worker_module_does_not_import_torch():
              "import ceph_tpu_torch.rados.reactor_proc\n"
              "print(','.join(sorted(m for m in sys.modules if m == 'torch'\n"
              "    or m.endswith(('parallel.service', 'rados.pagestore')))))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_gateway_and_cephfs_modules_do_not_import_torch():
+    """rgw, the MDS and their CLIs are clients of RADOS: their device work
+    is the OSDs', so importing them brings in no torch."""
+    probe = ("import sys\n"
+             "import ceph_tpu_torch.services.rgw\n"
+             "import ceph_tpu_torch.services.mds_cluster\n"
+             "import ceph_tpu_torch.tools.radosgw_admin\n"
+             "import ceph_tpu_torch.tools.cephfs_shell\n"
+             "print(','.join(sorted(m for m in sys.modules\n"
+             "    if m == 'torch' or m.startswith('torch.'))))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
