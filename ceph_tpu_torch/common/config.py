@@ -1,7 +1,9 @@
 # Copy of ceph_tpu/common/config.py at commit 4ac5bd2, with its ceph_tpu
 # import statements rebound to ceph_tpu_torch.  It adds ``osd_ec_device``,
-# and preloads the port's plugins (jerasure isa shec lrc clay cuda) by
-# default, where the reference's last one is tpu.
+# preloads the port's plugins (jerasure isa shec lrc clay cuda) by
+# default, where the reference's last one is tpu, and has no
+# ``osd_tier_slab_prewarm`` (the port's store compiles nothing per page
+# geometry, so the option would be read by nothing).
 """Typed option tables + runtime config proxy.
 
 Role-equivalent of the reference's md_config_t/ConfigProxy
@@ -397,10 +399,6 @@ DEFAULT_SCHEMA: Dict[str, Option] = _opts(
                 "processes (primary + min_size-1 acting peers); fewer "
                 "live acting members falls back to synchronous "
                 "writethrough for that op"),
-    Option("osd_tier_slab_prewarm", OPT_BOOL, True,
-           desc="compile the paged store's device-arm install/gather "
-                "kernels for the configured page geometry (all pow2 row "
-                "buckets) at store build, off the put path"),
     Option("osd_cache_target_dirty_ratio", OPT_FLOAT, 0.4,
            desc="agent flushes dirty pages when dirty bytes exceed "
                 "this fraction of the tier target"),

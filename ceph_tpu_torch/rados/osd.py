@@ -528,8 +528,8 @@ class OSD:
                 paged=bool(self.conf.get("osd_tier_pagestore", True)),
                 # None = auto (device arm iff the store is on the card);
                 # an explicit false config pins the host arm.  The port's
-                # store compiles nothing per geometry, so
-                # osd_tier_slab_prewarm has no effect here.
+                # store compiles nothing per geometry, so it has no
+                # osd_tier_slab_prewarm option.
                 device_arm=(None if self.conf.get("osd_tier_device_slab",
                                                   True) else False),
                 device=self._ec_device)
@@ -3345,12 +3345,41 @@ class OSD:
                 trace_id=w_tid, span_id=w_sid,
             )
             sends.append(self.messenger.send(self.osdmap.addr_of(osd), msg))
+        # under a pg_temp override the up-set members it keeps out of
+        # their positions are backfill targets: each also gets its shard
+        # and the log entry (no ack awaited), the way Ceph sends writes to
+        # its backfill targets.  Without it a PG written faster than its
+        # backfill passes run never has a pass that pushes nothing, so it
+        # never turns clean and its override (and the out OSD's strays)
+        # stays forever.
+        fills = []
+        if self.osdmap.pg_temp.get((op.pool_id, pg)):
+            fill_tid = uuid.uuid4().hex
+            up = self._raw_up(pool, pg)
+            for shard, osd in enumerate(up[:len(acting)]):
+                if osd in (CRUSH_ITEM_NONE, acting[shard], self.osd_id):
+                    continue
+                chunk = memoryview(np.ascontiguousarray(blobs[shard]))
+                fills.append(self.messenger.send(
+                    self.osdmap.addr_of(osd), MECSubWrite(
+                        pool_id=op.pool_id, pg=pg, oid=op.oid, shard=shard,
+                        chunk=chunk, version=version,
+                        object_size=object_size,
+                        chunk_crc=(shard_crcs[shard]
+                                   if shard_crcs is not None
+                                   else shard_crc(chunk)),
+                        tid=fill_tid, reply_to=self.addr,
+                        log_entry=entry_blob,
+                        chunk_off=chunk_off, shard_size=shard_size,
+                        hinfo=hinfo_blob, prior_version=base_version,
+                        from_osd=self.osd_id, epoch=self.osdmap.epoch)))
         # CONCURRENT stripe fan-out: all k+m sub-writes enqueue and their
         # per-connection flushes interleave on the loop, instead of each
         # send serializing on the previous one's socket drain; a failed
         # send counts as a missing ack, not a 5s stall
         sent = 0
-        for got in await asyncio.gather(*sends, return_exceptions=True):
+        results = await asyncio.gather(*sends, *fills, return_exceptions=True)
+        for got in results[:len(sends)]:
             if got is None:
                 sent += 1
             elif not isinstance(got, TRANSPORT_ERRORS):

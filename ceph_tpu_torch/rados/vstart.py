@@ -1,5 +1,7 @@
 # Copy of ceph_tpu/rados/vstart.py at commit 4ac5bd2, with its ceph_tpu
-# import statements rebound to ceph_tpu_torch.
+# import statements rebound to ceph_tpu_torch.  Where the two differ: the
+# command line takes ``--device`` (default ``cuda``; ``cpu`` must be named),
+# the OSDs' ``osd_ec_device``, which OSDs added later inherit.
 """vstart: a whole cluster on loopback, in one event loop.
 
 The reference's developer/test workflow (src/vstart.sh and
@@ -8,6 +10,7 @@ real messenger connections over 127.0.0.1 — sharing only hardware.  Used
 in-process by the integration tests and runnable standalone:
 
     python -m ceph_tpu_torch.rados.vstart --osds 5   # on the card
+    python -m ceph_tpu_torch.rados.vstart --osds 5 --device cpu
 """
 
 from __future__ import annotations
@@ -216,7 +219,8 @@ async def _reconcile(cluster: Cluster, control_file: str,
 
 async def _main(args) -> None:
     cluster = Cluster(n_osds=args.osds, data_dir=args.data_dir,
-                      n_mons=args.mons, with_mgr=args.mgr)
+                      n_mons=args.mons, with_mgr=args.mgr,
+                      conf={"osd_ec_device": args.device})
     await cluster.start()
     print(f"mons at {cluster.mon_addrs}; {args.osds} OSDs up. "
           + ("Ctrl-C to stop." if args.run_for <= 0
@@ -259,4 +263,7 @@ if __name__ == "__main__":
     p.add_argument("--control-file", default=None,
                    help="poll this spec file and converge daemons to it "
                         "(orchestrator reconciliation)")
+    p.add_argument("--device", default="cuda",
+                   help="device the OSDs' codecs run on: cuda, cuda:N "
+                        "or cpu")
     asyncio.run(_main(p.parse_args()))

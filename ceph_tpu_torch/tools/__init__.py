@@ -1,7 +1,13 @@
-"""Operator CLIs of the port: benchmark (ceph_erasure_code_benchmark),
-rados and rbd (pool I/O and images), radosgw_admin (rgw users, quotas and
-usage) and cephfs_shell (one-shot file access over the cap-aware
-client)."""
+"""Operator CLIs and offline tools of the port: benchmark
+(ceph_erasure_code_benchmark) and bench_suite (qa's bench.sh sweep),
+non_regression (the erasure-code corpus and the cluster gates), rados and
+rbd (pool I/O and images), radosgw_admin (rgw users, quotas and usage),
+cephfs_shell (one-shot file access over the cap-aware client), ceph (the
+status and admin CLI), cephadm and ceph_volume (deployment), traffic (the
+gates' tenant load), wire_corpus and dencoder (the wire format's archive
+and round trips), objectstore_tool and monstore_tool (offline stores),
+trace_export (Jaeger JSON of a stitched trace) and lint (the tree's static
+checks)."""
 
 import sys
 from typing import Dict, List

@@ -117,7 +117,7 @@ def _resolve() -> None:
     except (OSError, RuntimeError):
         import logging
 
-        logging.getLogger("ceph_tpu.checksum").warning(
+        logging.getLogger("ceph_tpu_torch.checksum").warning(
             "native crc32c unavailable; falling back to zlib.crc32 "
             "(peers negotiate per connection)")
         _IMPL = zlib.crc32

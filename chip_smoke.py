@@ -232,13 +232,39 @@ Phases; any failure exits nonzero before the result line is printed:
             must launch; slab_install and slab_gather calls are counted.
             Each line is "services {...}" with the card's name and power
             limit.
-10. split   host prepare / host->device / kernel call (apply_packedbit,
+10. tools   the offline and operator tools, with every launch count set to
+            0 just before and read just after (the "tools" run; only this
+            process's launches count):
+            a. corpus: the port's non_regression --check of every
+               corpus/plugin=* archive with its own plugin, the plugin=tpu
+               one under plugin=cuda with CEPH_TPU_PACKEDBIT=1 and =0; then
+               --create of plugin=cuda and plugin=jerasure reed_sol_van k=8
+               m=3 and cauchy_good k=4 m=2 into a temp --base, their chunks
+               equal, and --check of the cuda ones on both lanes;
+            b. sweep: bench_suite over jerasure, isa and cuda at 4 MiB, 4
+               iterations, its default (k, m) map (132 cells): each cell's
+               MB/s, the plugins side by side;
+            c. gates: the ten cluster gates of non_regression, each a
+               process with --device cuda at its default seconds: rc and
+               wall seconds, and the slab parity children's store counters;
+            d. operator tools on a disk-backed 4-OSD cluster with the mgr
+               and a plugin=cuda k=2 m=1 pool of 4 MiB objects: ceph status,
+               health, osd df and osd tree, trace_export of one put's
+               trace, objectstore_tool --op list on a stopped OSD's store,
+               monstore_tool dump of the stopped mon's, dencoder roundtrip,
+               ceph_volume prepare/list/zap, cephadm bootstrap --device
+               cuda, ls and rm-cluster;
+            e. lint: python -m ceph_tpu_torch.tools.lint --json, ok with 0
+               findings.
+            K4, K1 and K3 must launch.  Each line is "tools {...}" with the
+            card's name and power limit.
+11. split   host prepare / host->device / kernel call (apply_packedbit,
             the lane's one launch) / device->host of one 4 MiB encode (the
             codec API takes host bytes), and the device's busy share over
             back-to-back encodes from torch.profiler.
-11. report  the card, one {"kernels": [...]} line (each row's "launches" is
-            the sum of its counts in phases 3 to 9, "launches_by_run" the
-            ten runs), and the result line.
+12. report  the card, one {"kernels": [...]} line (each row's "launches" is
+            the sum of its counts in phases 3 to 10, "launches_by_run" the
+            eleven runs), and the result line.
 """
 
 from __future__ import annotations
@@ -925,6 +951,21 @@ def _resident_round_trip(device) -> None:
           f"from chunks {list(chosen)}'s planes")
 
 
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables set inside, put back as they were after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
 def phase_main(device):
     """The port's main path, three runs; returns each kernel's launch counts
     by run and the K1/K2 routes of the run with the lane off."""
@@ -936,17 +977,10 @@ def phase_main(device):
     for name in ("apply_bytes_w8", "gf2_matmul"):
         check(on[name] == 0, f"{name} launched with the packed-bit lane on")
 
-    saved = os.environ.get("CEPH_TPU_PACKEDBIT")
-    os.environ["CEPH_TPU_PACKEDBIT"] = "0"
-    try:
+    with _env(CEPH_TPU_PACKEDBIT="0"):
         _zero_counts()
         _codec_path(device)
         off, routes = _read_counts(device, "(CEPH_TPU_PACKEDBIT=0)")
-    finally:
-        if saved is None:
-            os.environ.pop("CEPH_TPU_PACKEDBIT")
-        else:
-            os.environ["CEPH_TPU_PACKEDBIT"] = saved
     for name, route in (("apply_bytes_w8", "xor"), ("gf2_matmul", "mma")):
         check(off[name] > 0, f"{name} never launched with the lane off")
         check(routes[name][route] == off[name],
@@ -1317,9 +1351,7 @@ def phase_queue_lanes(device, q, codec, sinfo, obj, shards, emit) -> None:
          rebuilt=list(lost), checked=True)
 
     # the int8-plane lanes: w=8 with the packed-bit lane off, and w=16
-    saved = os.environ.get("CEPH_TPU_PACKEDBIT")
-    os.environ["CEPH_TPU_PACKEDBIT"] = "0"
-    try:
+    with _env(CEPH_TPU_PACKEDBIT="0"):
         for w in (8, 16):
             cdc = (codec if w == 8 else
                    _codec("cuda", device, technique="reed_sol_van", k=8, m=3,
@@ -1354,11 +1386,6 @@ def phase_queue_lanes(device, q, codec, sinfo, obj, shards, emit) -> None:
                   f"w={w} submit_resident parity differs from CPU jerasure")
             emit("lanes int8", w=w, packed=True, planar=True, resident=True,
                  checked=True)
-    finally:
-        if saved is None:
-            os.environ.pop("CEPH_TPU_PACKEDBIT")
-        else:
-            os.environ["CEPH_TPU_PACKEDBIT"] = saved
 
 
 # ------------------------------------------------------------ phase store --
@@ -3063,6 +3090,338 @@ def phase_services(device, card):
     return counts
 
 
+# ------------------------------------------------------------ phase tools --
+
+TOOLS_SWEEP_PLUGINS = "jerasure,isa,cuda"
+TOOLS_SWEEP_SIZE = 4 << 20
+TOOLS_SWEEP_ITERATIONS = 4
+TOOLS_GATES = ("device-parity", "wire-floor", "qos", "tier", "chaos",
+               "slow-ops", "crash", "full", "rebalance", "lifecycle")
+TOOLS_GATE_TIMEOUT_S = 300
+TOOLS_OSDS = 4
+TOOLS_OBJECTS = 8
+# the archives the port creates, each beside plugin=jerasure's of the
+# same profile: (stripe width, profile)
+TOOLS_CREATE = ((4096, ("technique=reed_sol_van", "k=8", "m=3")),
+                (4096, ("technique=cauchy_good", "k=4", "m=2")))
+
+
+def _archive_args(profile_dir: str):
+    """non_regression arguments that name a corpus directory's profile."""
+    parts = profile_dir.split()
+    argv = ["--stripe-width", parts[1].split("=", 1)[1]]
+    for kv in parts[2:]:
+        argv += ["-P", kv]
+    return parts[0].split("=", 1)[1], argv
+
+
+def _tool(main, argv):
+    """One in-process tool run: (rc, its stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def _tools_corpus(device, emit) -> None:
+    """Every committed archive replayed by the port's non_regression, the
+    plugin=tpu one under plugin=cuda on both lanes; then plugin=cuda
+    archives created and checked in a temp --base, chunks equal to
+    plugin=jerasure's created there."""
+    import tempfile
+
+    from ceph_tpu_torch.tools import non_regression
+
+    corpus = os.path.join(ROOT, "corpus")
+    dirs = sorted(d for d in os.listdir(corpus) if d.startswith("plugin="))
+    check(len(dirs) >= 6, f"tools: the corpus shrank: {dirs}")
+    for d in dirs:
+        plugin, argv = _archive_args(d)
+        lanes = ("1", "0") if plugin == "tpu" else ("1",)
+        for lane in lanes:
+            with _env(CEPH_TPU_PACKEDBIT=lane):
+                t0 = time.perf_counter()
+                rc, _ = _tool(non_regression.main, [
+                    "--check", "--base", corpus, "--device", str(device),
+                    "--plugin", "cuda" if plugin == "tpu" else plugin]
+                    + argv)
+            check(rc == 0, f"tools: --check of {d!r} exited {rc}")
+            emit("corpus", archive=d, plugin="cuda" if plugin == "tpu"
+                 else plugin, packedbit=lane,
+                 ms=(time.perf_counter() - t0) * 1e3)
+    with tempfile.TemporaryDirectory() as base:
+        for width, profile in TOOLS_CREATE:
+            params = [a for kv in profile for a in ("-P", kv)]
+            common = ["--base", base, "--stripe-width", str(width),
+                      "--device", str(device)] + params
+            for plugin in ("jerasure", "cuda"):
+                rc, _ = _tool(non_regression.main,
+                              ["--create", "--plugin", plugin] + common)
+                check(rc == 0, f"tools: --create {plugin} {profile} "
+                      f"exited {rc}")
+            for lane in ("1", "0"):
+                with _env(CEPH_TPU_PACKEDBIT=lane):
+                    rc, _ = _tool(non_regression.main,
+                                  ["--check", "--plugin", "cuda"] + common)
+                check(rc == 0, f"tools: --check cuda {profile} "
+                      f"(packedbit={lane}) exited {rc}")
+            names = [f"plugin={p} stripe-width={width} " + " ".join(profile)
+                     for p in ("jerasure", "cuda")]
+            chunks = [sorted(os.listdir(os.path.join(base, n)))
+                      for n in names]
+            check(chunks[0] == chunks[1], f"tools: {profile}: chunk files "
+                  f"differ: {chunks}")
+            for c in chunks[0]:
+                with open(os.path.join(base, names[0], c), "rb") as f:
+                    want = f.read()
+                with open(os.path.join(base, names[1], c), "rb") as f:
+                    check(f.read() == want, f"tools: created plugin=cuda "
+                          f"{profile} chunk {c} differs from jerasure's")
+            emit("create", profile=" ".join(profile), stripe_width=width,
+                 files=len(chunks[0]), equal_to="plugin=jerasure")
+
+
+def _tools_sweep(device, emit) -> None:
+    """bench_suite's sweep over TOOLS_SWEEP_PLUGINS at 4 MiB: each cell's
+    MB/s, the plugins side by side at one (technique, k, m, workload)."""
+    from ceph_tpu_torch.tools import bench_suite
+
+    argv = ["--plugins", TOOLS_SWEEP_PLUGINS, "--size", str(TOOLS_SWEEP_SIZE),
+            "--iterations", str(TOOLS_SWEEP_ITERATIONS),
+            "--device", str(device)]
+    t0 = time.perf_counter()
+    rc, out = _tool(bench_suite.main, argv)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"tools: bench_suite exited {rc}")
+    rows = [json.loads(line) for line in out.splitlines() if line.strip()]
+    want = (sum(len(ms) for ms in bench_suite.K2MS.values()) * 2 * 2
+            * len(TOOLS_SWEEP_PLUGINS.split(",")))
+    check(len(rows) == want, f"tools: bench_suite printed {len(rows)} "
+          f"cells, not {want}")
+    cells = collections.defaultdict(dict)
+    for r in rows:
+        cells[(r["technique"], r["k"], r["m"], r["workload"])][
+            r["plugin"]] = r["mbps"]
+    for (technique, k, m, workload), mbps in sorted(cells.items()):
+        emit("sweep", technique=technique, k=k, m=m, workload=workload,
+             size=TOOLS_SWEEP_SIZE, MBps=mbps)
+    emit("sweep total", cells=len(rows), wall_s=wall)
+
+
+def _tools_gates(device, emit) -> None:
+    """The ten cluster gates, each a `python -m
+    ceph_tpu_torch.tools.non_regression --<gate> --device <device>`
+    process at its default seconds."""
+    for gate in TOOLS_GATES:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.non_regression",
+             f"--{gate}", "--device", str(device)],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=TOOLS_GATE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        extra = {}
+        if gate == "device-parity":
+            for line in proc.stdout.splitlines():
+                for arm in ("device", "host"):
+                    prefix = f"device parity {arm} child: "
+                    if line.startswith(prefix):
+                        extra[arm] = json.loads(line[len(prefix):])
+        emit("gate", gate=gate, rc=proc.returncode, wall_s=wall, **extra,
+             last=(proc.stdout.strip().splitlines() or [""])[-1][:300])
+        if proc.returncode:
+            sys.stderr.write(proc.stdout[-3000:] + proc.stderr[-3000:])
+        check(proc.returncode == 0, f"tools: --{gate} exited "
+              f"{proc.returncode}")
+        if gate == "device-parity":
+            dev = extra.get("device", {})
+            check(dev.get("device_arm") and dev.get("device_installs", 0)
+                  + dev.get("h2d_installs", 0) > 0,
+                  f"tools: the parity device child's arm did not engage: "
+                  f"{extra}")
+            check(not extra.get("host", {}).get("device_arm", 1),
+                  f"tools: the parity host child engaged the device arm: "
+                  f"{extra}")
+
+
+def _tools_operator(device, emit) -> None:
+    """The operator tools against a disk-backed cluster with the mgr on
+    `device`: the ceph CLI, trace_export of one put, the stores of a
+    stopped OSD and mon, dencoder, ceph_volume and cephadm."""
+    import asyncio
+    import tempfile
+
+    from ceph_tpu_torch.rados import osd as osdmod
+    from ceph_tpu_torch.rados.vstart import Cluster
+    from ceph_tpu_torch.tools import (ceph, ceph_volume, cephadm, dencoder,
+                                      monstore_tool, objectstore_tool,
+                                      trace_export)
+
+    rng = np.random.default_rng(SEED + 14)
+    blobs = {f"t{i}": rng.integers(0, 256, OBJECT_SIZE, dtype=np.uint8)
+             .tobytes() for i in range(TOOLS_OBJECTS)}
+
+    async def run(data_dir):
+        asok = os.path.join(data_dir, "asok")
+        os.makedirs(asok)
+        conf = {"osd_ec_device": str(device), "osd_auto_repair": False,
+                "client_op_timeout": 60.0, "osd_heartbeat_interval": 0.2,
+                "admin_socket_dir": asok, "ms_local_fastpath": False}
+        cluster = Cluster(n_osds=TOOLS_OSDS, conf=dict(conf), with_mgr=True,
+                          data_dir=os.path.join(data_dir, "cluster"))
+        await cluster.start()
+        stopped = False
+        try:
+            c = await cluster.client()
+            pool = await c.create_pool("tools", pg_num=8, profile={
+                "plugin": "cuda", "technique": "reed_sol_van",
+                "k": "2", "m": "1"})
+            t0 = time.perf_counter()
+            for oid, data in blobs.items():
+                await c.put(pool, oid, data)
+            put_s = time.perf_counter() - t0
+            for oid, data in blobs.items():
+                check(await c.get(pool, oid) == data,
+                      f"tools: read of {oid} differs")
+            mon = f"{cluster.mons[0].addr[0]}:{cluster.mons[0].addr[1]}"
+            for words in (("status",), ("health",), ("osd", "df"),
+                          ("osd", "tree")):
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc = await ceph.run(ceph.parse_args(
+                        ["--mon", mon, "--format", "json", *words]))
+                check(rc == 0, f"tools: ceph {' '.join(words)} exited {rc}")
+                doc = json.loads(out.getvalue())
+                if words == ("status",):
+                    check(doc["osdmap"]["num_up_osds"] == TOOLS_OSDS,
+                          f"tools: ceph status: {doc['osdmap']}")
+                emit("ceph", command=" ".join(words),
+                     summary=(doc.get("health", doc.get("status")) if isinstance(doc, dict)
+                              else f"{len(doc)} rows"))
+            root = [d for d in c.tracer.dump()
+                    if d["name"].startswith("client_op write")][-1]
+            jaeger = os.path.join(data_dir, "trace.json")
+            rc = await asyncio.to_thread(trace_export.main, [
+                "--asok-dir", asok, "--trace", root["trace_id"],
+                "-o", jaeger])
+            check(rc == 0, f"tools: trace_export exited {rc}")
+            with open(jaeger) as f:
+                spans = json.load(f)["data"][0]["spans"]
+            names = {s["operationName"] for s in spans}
+            check({"osd_op write", "ec write"} <= names,
+                  f"tools: the exported trace lacks the OSD spans: {names}")
+            emit("trace_export", spans=len(spans),
+                 sub_writes=sum(n.startswith("ec_sub_write")
+                                for n in (s["operationName"] for s in spans)))
+            victim = max(cluster.osds)
+            path = cluster.osds[victim].store.path
+            await cluster.kill_osd(victim)
+            rc, out = _tool(objectstore_tool.main,
+                            ["--data-path", path, "--op", "list"])
+            check(rc == 0 and out.strip(), f"tools: objectstore_tool --op "
+                  f"list on osd.{victim} exited {rc}")
+            emit("objectstore_tool", osd=victim,
+                 lines=len(out.strip().splitlines()))
+            await c.stop()
+            await cluster.stop()
+            stopped = True
+            return put_s
+        finally:
+            if not stopped:
+                await cluster.stop()
+
+    with tempfile.TemporaryDirectory() as data_dir:
+        try:
+            put_s = asyncio.run(asyncio.wait_for(run(data_dir), 300))
+        finally:
+            if osdmod._BATCH_QUEUE is not None:
+                osdmod._BATCH_QUEUE.close()
+            osdmod._BATCH_QUEUE = osdmod._PLANAR_STORE = None
+        emit("cluster", objects=TOOLS_OBJECTS, object_bytes=OBJECT_SIZE,
+             put_GB_per_s=TOOLS_OBJECTS * OBJECT_SIZE / put_s / 1e9)
+        store = os.path.join(data_dir, "cluster", "mon.0", "store.db")
+        rc, out = _tool(monstore_tool.main, [store, "dump"])
+        check(rc == 0, f"tools: monstore_tool dump exited {rc}")
+        emit("monstore_tool", last_committed=json.loads(out)[
+            "last_committed"])
+        rc, out = _tool(dencoder.main, ["roundtrip"])
+        check(rc == 0, f"tools: dencoder roundtrip exited {rc}")
+        emit("dencoder", result=out.strip().splitlines()[-1])
+        vol = os.path.join(data_dir, "volumes")
+        for argv in (["prepare", "--base", vol, "--osd-id", "0"],
+                     ["prepare", "--base", vol, "--osd-id", "1"],
+                     ["zap", "--base", vol, "--osd-id", "1", "--yes"]):
+            rc, _ = _tool(ceph_volume.main, argv)
+            check(rc == 0, f"tools: ceph_volume {argv[0]} exited {rc}")
+        rc, out = _tool(ceph_volume.main, ["list", "--base", vol])
+        ids = [r["osd_id"] for r in json.loads(out)]
+        check(rc == 0 and ids == [0], f"tools: ceph_volume list: {ids}")
+        emit("ceph_volume", prepared=2, zapped=1, listed=ids)
+        clusters = os.path.join(data_dir, "clusters")
+        t0 = time.perf_counter()
+        rc, _ = _tool(cephadm.main, ["--data-root", clusters, "bootstrap",
+                                     "--name", "c1", "--osds", "3",
+                                     "--device", str(device)])
+        boot_s = time.perf_counter() - t0
+        spec_path = os.path.join(clusters, "c1", "cluster.json")
+        pid = 0
+        try:
+            check(rc == 0, f"tools: cephadm bootstrap exited {rc}")
+            with open(spec_path) as f:
+                pid = json.load(f)["pid"]
+            rc, out = _tool(cephadm.main, ["--data-root", clusters, "ls",
+                                           "--format", "json"])
+            check(rc == 0 and "c1" in out, f"tools: cephadm ls: {out!r}")
+            rc, _ = _tool(cephadm.main, ["--data-root", clusters,
+                                         "rm-cluster", "--name", "c1",
+                                         "--force"])
+            check(rc == 0 and not os.path.exists(spec_path),
+                  f"tools: cephadm rm-cluster exited {rc}")
+        finally:
+            if pid and cephadm._alive(pid):
+                os.kill(pid, 9)
+        emit("cephadm", bootstrap_s=boot_s, osds=3)
+
+
+def _tools_lint(emit) -> None:
+    proc = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.lint", "--json"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"tools: the lint exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    check(doc["ok"] and doc["findings"] == [], f"tools: lint findings: "
+          f"{doc['findings']}")
+    emit("lint", files=doc["files_scanned"], findings=0)
+
+
+def phase_tools(device, card):
+    """The offline and operator tools on the card: the corpus replays and
+    creates, bench_suite's sweep, the ten cluster gates as processes, the
+    operator tools on a disk-backed cluster, and the lint.  Every launch
+    count is set to 0 just before and read just after; only this process's
+    launches count (the gates' report their stores' counters).  Returns
+    each kernel's launch count in this run."""
+
+    def emit(step, **numbers):
+        print("tools " + json.dumps({"step": step, **numbers, "card": card}),
+              flush=True)
+
+    t_phase = time.perf_counter()
+    _zero_counts()
+    _tools_corpus(device, emit)
+    _tools_sweep(device, emit)
+    _tools_gates(device, emit)
+    _tools_operator(device, emit)
+    counts, _ = _read_counts(device, "(tools)")
+    _tools_lint(emit)
+    for name in ("apply_packedbit", "apply_bytes_w8", "xor_schedule"):
+        check(counts[name] > 0, f"tools: {name} never launched")
+    emit("launches", **{name: n for name, n in counts.items()})
+    print(f"tools: phase {time.perf_counter() - t_phase:.2f}s wall")
+    return counts
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -3104,6 +3463,8 @@ def main() -> int:
             counts[name]["clients"] = n
         for name, n in phase_services("cuda", card).items():
             counts[name]["services"] = n
+        for name, n in phase_tools("cuda", card).items():
+            counts[name]["tools"] = n
         phase_split("cuda")
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

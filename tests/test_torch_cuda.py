@@ -867,3 +867,89 @@ def test_rgw_and_cephfs_on_the_card_equal_their_jerasure_twin(card,
     finally:
         if osdmod._BATCH_QUEUE is not None:
             osdmod._BATCH_QUEUE.close()
+
+
+def _tpu_archive_args():
+    import os
+
+    corpus = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "corpus")
+    (archive,) = [d for d in os.listdir(corpus) if d.startswith("plugin=tpu")]
+    parts = archive.split()
+    argv = ["--base", corpus, "--stripe-width", parts[1].split("=", 1)[1]]
+    for kv in parts[2:]:
+        argv += ["-P", kv]
+    return argv
+
+
+@pytest.mark.parametrize("packedbit,kernel", [
+    ("1", cuda_packedbit.apply_packedbit), ("0", cuda_gf2.apply_bytes_w8)])
+def test_non_regression_replays_the_tpu_archive_on_the_card(
+        card, monkeypatch, packedbit, kernel):
+    """`non_regression --check --plugin cuda` of the plugin=tpu archive on
+    the card: K4 with the packed-bit lane on, K1 with it off."""
+    from ceph_tpu_torch.tools import non_regression
+
+    monkeypatch.setenv("CEPH_TPU_PACKEDBIT", packedbit)
+    before = kernel.launches
+    assert non_regression.main(["--check", "--plugin", "cuda", "--device",
+                                "cuda"] + _tpu_archive_args()) == 0
+    torch.cuda.synchronize()
+    assert kernel.launches > before
+
+
+@pytest.mark.parametrize("technique,kernel", [
+    ("reed_sol_van", cuda_packedbit.apply_packedbit),
+    ("cauchy_good", cuda_packedbit.xor_schedule)])
+def test_bench_suite_cell_of_cuda_runs_its_kernel(card, capsys, technique,
+                                                  kernel):
+    """One bench_suite cell of plugin=cuda on the card: K4 for
+    reed_sol_van, K3 for cauchy_good."""
+    import json
+
+    from ceph_tpu_torch.tools import bench_suite
+
+    saved = dict(bench_suite.TECHNIQUES)
+    bench_suite.TECHNIQUES["cuda"] = [technique]
+    before = kernel.launches
+    try:
+        assert bench_suite.main(["--plugins", "cuda", "--ks", "4",
+                                 "--workloads", "encode", "--size",
+                                 str(4 << 20), "--iterations", "2"]) == 0
+    finally:
+        bench_suite.TECHNIQUES.clear()
+        bench_suite.TECHNIQUES.update(saved)
+    torch.cuda.synchronize()
+    rows = [json.loads(line) for line in
+            capsys.readouterr().out.strip().splitlines()]
+    assert [(r["plugin"], r["technique"], r["m"]) for r in rows] == [
+        ("cuda", technique, 2), ("cuda", technique, 3)]
+    assert all(r["mbps"] > 0 for r in rows)
+    assert kernel.launches > before
+
+
+def test_device_parity_gate_engages_the_cuda_arm(card):
+    """`non_regression --device-parity --device cuda`: the device child's
+    store is the CUDA arm and installs, the host child's is not, and the
+    digests agree (the gate's exit code)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.non_regression",
+         "--device-parity", "--device", "cuda"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    children = {}
+    for line in proc.stdout.splitlines():
+        for arm in ("device", "host"):
+            prefix = f"device parity {arm} child: "
+            if line.startswith(prefix):
+                children[arm] = json.loads(line[len(prefix):])
+    assert children["device"]["device_arm"] == 1
+    assert (children["device"]["device_installs"]
+            + children["device"]["h2d_installs"]) > 0
+    assert children["host"]["device_arm"] == 0

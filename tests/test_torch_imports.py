@@ -3,6 +3,7 @@ module, and its entry points resolve to the CUDA device unless told "cpu"."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -48,11 +49,27 @@ import ceph_tpu_torch.services.mds_cluster
 import ceph_tpu_torch.services.rbd
 import ceph_tpu_torch.services.rbd_export
 import ceph_tpu_torch.services.rgw
+import ceph_tpu_torch.tools.bench_suite
 import ceph_tpu_torch.tools.benchmark
+import ceph_tpu_torch.tools.ceph
+import ceph_tpu_torch.tools.ceph_volume
+import ceph_tpu_torch.tools.cephadm
 import ceph_tpu_torch.tools.cephfs_shell
+import ceph_tpu_torch.tools.dencoder
+import ceph_tpu_torch.tools.lint.__main__
+import ceph_tpu_torch.tools.lint.async_safety
+import ceph_tpu_torch.tools.lint.codec
+import ceph_tpu_torch.tools.lint.registry
+import ceph_tpu_torch.tools.lint.wire_abi
+import ceph_tpu_torch.tools.monstore_tool
+import ceph_tpu_torch.tools.non_regression
+import ceph_tpu_torch.tools.objectstore_tool
 import ceph_tpu_torch.tools.radosgw_admin
 import ceph_tpu_torch.tools.rados
 import ceph_tpu_torch.tools.rbd
+import ceph_tpu_torch.tools.trace_export
+import ceph_tpu_torch.tools.traffic
+import ceph_tpu_torch.tools.wire_corpus
 import ceph_tpu_torch.utils.checksum
 import ceph_tpu_torch.utils.wirepath
 from ceph_tpu_torch.ec.registry import registry
@@ -116,7 +133,9 @@ def test_no_port_source_imports_jax_or_ceph_tpu():
     for sentinel in (("mgr", "daemon.py"), ("services", "rgw.py"),
                      ("services", "mds.py"), ("services", "mds_cluster.py"),
                      ("tools", "radosgw_admin.py"),
-                     ("tools", "cephfs_shell.py")):
+                     ("tools", "cephfs_shell.py"),
+                     ("tools", "non_regression.py"), ("tools", "cephadm.py"),
+                     ("tools", "lint", "__init__.py")):
         assert any(p.endswith(os.path.join(*sentinel)) for p in sources)
     assert os.path.isfile(sources[-1])
     bad = {}
@@ -161,6 +180,65 @@ def test_import_scan_sees_function_level_imports():
                                                  "jax.numpy"]
 
 
+# a dotted module path of the reference in a string: an argv "-m" target, an
+# import_module argument, a __module__ prefix
+REFERENCE_MODULE = re.compile(r"(?<![\w./])ceph_tpu\.(?=[A-Za-z_]|$)")
+# the one place the port names the reference's modules on purpose: the
+# unpickler's mapping of their class paths onto its own
+REFERENCE_MODULE_ALLOWED = (os.path.join("ceph_tpu_torch", "rados",
+                                         "unpickle.py"),)
+
+
+def reference_module_strings(source):
+    """Every string constant of `source`, docstrings aside, that names a
+    module of the reference package (``ceph_tpu.<...>``, not
+    ``ceph_tpu_torch``): the import scan above cannot see a module a
+    program names in a string and imports or runs later."""
+    tree = ast.parse(source)
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)):
+                docstrings.add(id(body[0].value))
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docstrings
+            and REFERENCE_MODULE.search(node.value)]
+
+
+def test_no_port_source_names_a_reference_module_in_a_string():
+    bad = {}
+    for path in port_sources():
+        rel = os.path.relpath(path, ROOT)
+        if rel in REFERENCE_MODULE_ALLOWED:
+            continue
+        with open(path) as f:
+            hits = reference_module_strings(f.read())
+        if hits:
+            bad[rel] = hits
+    assert bad == {}
+
+
+@pytest.mark.parametrize("line,named", [
+    ('cmd = [sys.executable, "-m", "ceph_tpu.rados.vstart"]', True),
+    ('importlib.import_module("ceph_tpu.tools.non_regression")', True),
+    ('ok = cls.__module__.startswith("ceph_tpu.")', True),
+    ('log = logging.getLogger("ceph_tpu.checksum")', True),
+    ('msg = f"run python -m ceph_tpu.tools.lint --update-wire-lock"', True),
+    ('cmd = [sys.executable, "-m", "ceph_tpu_torch.rados.vstart"]', False),
+    ('ok = cls.__module__.startswith("ceph_tpu_torch.")', False),
+    ('REPLACES = "ceph_tpu/ops/pallas_gf2.py:57"', False),
+    ('MAGIC = b"ceph_tpu-rbd-diff-v1"', False),
+    ('_REFERENCE = "ceph_tpu"', False),
+    ('def f():\n    """Copy of ceph_tpu.rados.osd."""\n', False),
+])
+def test_reference_module_string_pattern(line, named):
+    assert bool(reference_module_strings(line + "\n")) == named
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for asked in (None, "cuda", "cuda:0", torch.device("cuda")):
@@ -199,6 +277,25 @@ def test_gateway_and_cephfs_modules_do_not_import_torch():
              "import ceph_tpu_torch.services.mds_cluster\n"
              "import ceph_tpu_torch.tools.radosgw_admin\n"
              "import ceph_tpu_torch.tools.cephfs_shell\n"
+             "print(','.join(sorted(m for m in sys.modules\n"
+             "    if m == 'torch' or m.startswith('torch.'))))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_tool_modules_import_torch_only_when_they_run_a_codec():
+    """The offline and operator tools import torch only inside the calls
+    that build a codec or start a cluster (non_regression, bench_suite):
+    importing any of them, the lint included, brings in no torch."""
+    probe = ("import sys\n"
+             "for name in ('bench_suite', 'ceph', 'ceph_volume', 'cephadm',\n"
+             "             'dencoder', 'lint.__main__', 'monstore_tool',\n"
+             "             'non_regression', 'objectstore_tool',\n"
+             "             'trace_export', 'traffic', 'wire_corpus'):\n"
+             "    __import__('ceph_tpu_torch.tools.' + name)\n"
              "print(','.join(sorted(m for m in sys.modules\n"
              "    if m == 'torch' or m.startswith('torch.'))))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
