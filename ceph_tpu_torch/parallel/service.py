@@ -3,8 +3,9 @@ a round.
 
 Copy of ceph_tpu/parallel/service.py:72-1531 at commit 645aba9 (the
 BatchingQueue, its lanes, breaker and counters, and PlanarShardStore, the
-monolithic resident store), on PyTorch.  Not copied: the host GF(2)
-mirrors, because the port has no CPU route (below).
+monolithic resident store), on PyTorch, with its mesh seam as of commit
+d2d1706.  Not copied: the host GF(2) mirrors, because the port has no CPU
+route (below).
 
 The queue aggregates encode/decode requests from many objects and ops,
 concatenates them column-wise into one [rows, sum(B)] buffer per (matrix,
@@ -68,8 +69,27 @@ the reference would serve a group on the host, the port fails it, so
 Environment, read at construction, the reference's names:
 CEPH_TPU_BATCH_DELAY (default max_delay, seconds), CEPH_TPU_DISPATCH_TIMEOUT
 (watchdog seconds), CEPH_TPU_INJECT_DISPATCH_DELAY (seconds added to every
-dispatch).  The queue drives one device; the reference's ``mesh`` and
-``use_pallas`` arguments are not taken.
+dispatch).  The reference's ``use_pallas`` argument is not taken.
+
+Device mesh (parallel/mesh.py).  ``mesh=None`` auto-detects
+(``shared_mesh(device)``: every card when two or more are visible, 8 shards
+of the queue's device under CEPH_TPU_MESH=1, else none), ``mesh=False`` pins
+the queue to its one device, and a MeshDispatcher is used as given.  On a
+mesh every lane pads its batch's columns so that each shard is a whole
+number of symbols (packed, resident: w/8 bytes), of 32-byte plane words
+(packedbit, packedbit_resident) or of columns (planar, packedbit_planes),
+lays it across the mesh (``shard_batch``), runs the lane's own kernel once a
+shard on the shard's device, and gathers the products in column order onto
+the queue's device; the fan-out slices real columns only, and `bytes` counts
+the batch before the pad.  So byte results come back through one pinned
+buffer, and plane results (which the reference leaves sharded across its
+chips) are one tensor on the queue's device.  Every other card of the mesh
+has its own compute stream, current on that card while a round launches:
+the copies to and from it and its kernels run there, ordered against the
+queue's streams by torch's cross-device copies, so the round's `done` event
+on the queue's compute stream follows every shard.  A shard that fails
+fails its group with -EIO, like any dispatch error (the reference serves a
+sick mesh's batch on one device).
 
 Observability: the `ec_cuda` counter set (schema in _build_ec_cuda_perf,
 the reference's `ec_tpu` names and kinds), `dump_timeline()` for the
@@ -116,7 +136,7 @@ def _build_ec_cuda_perf() -> PerfCounters:
       submit_<lane>        u64         requests accepted per lane
       bytes_<lane>         u64         packed-equivalent bytes submitted per lane
       dispatch             u64         device calls issued
-      sharded_dispatch     u64         dispatches laid across a mesh (0: no mesh)
+      sharded_dispatch     u64         dispatches laid across the device mesh
       overlapped_rounds    u64         rounds launched while the previous one
                                        was in flight (launch order)
       bytes                u64         bytes dispatched
@@ -246,8 +266,15 @@ class BatchingQueue:
         max_pending_bytes: int = 16 << 20,
         max_delay: Optional[float] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        # mesh=None: auto-detect; mesh=False: this one device
+        if mesh is None:
+            from ceph_tpu_torch.parallel.mesh import shared_mesh
+
+            mesh = shared_mesh(self.device)
+        self.mesh = mesh or None
         self.max_pending_bytes = max_pending_bytes
         # an explicit max_delay wins over CEPH_TPU_BATCH_DELAY
         if max_delay is None:
@@ -270,9 +297,14 @@ class BatchingQueue:
         # test seam: invoked (worker thread) after a round is launched,
         # before the backlog check
         self._launch_hook = None
+        # the other cards of a mesh: a compute stream each
+        self._shard_streams: Dict[torch.device, Any] = {}
         if self.device.type == "cuda":
             self._copy_in = torch.cuda.Stream(self.device)
             self._compute = torch.cuda.Stream(self.device)
+            for dev in (self.mesh.unique_devices if self.mesh else ()):
+                if dev != self.device:
+                    self._shard_streams[dev] = torch.cuda.Stream(dev)
         else:
             self._copy_in = self._compute = None
         # bit-matrices on the device for the int8-plane lanes, by content
@@ -301,6 +333,10 @@ class BatchingQueue:
     @property
     def bytes_dispatched(self) -> int:
         return self.perf.get("bytes")
+
+    @property
+    def sharded_dispatches(self) -> int:
+        return self.perf.get("sharded_dispatch")
 
     @property
     def overlapped_rounds(self) -> int:
@@ -721,11 +757,14 @@ class BatchingQueue:
 
     def _on_device(self):
         """The queue's device and compute stream as current (CUDA), for
-        whatever thread launches."""
+        whatever thread launches, and each other card of a mesh's compute
+        stream as current on that card."""
         if self._compute is None:
             return contextlib.nullcontext()
         stack = contextlib.ExitStack()
         stack.enter_context(torch.cuda.device(self.device))
+        for stream in self._shard_streams.values():
+            stack.enter_context(torch.cuda.stream(stream))
         stack.enter_context(torch.cuda.stream(self._compute))
         return stack
 
@@ -828,8 +867,11 @@ class BatchingQueue:
         self._complete_safe(self._launch_safe(groups))
 
     def _note_dispatch(self, nbytes: int) -> None:
-        """Dispatch-complete accounting shared by every lane."""
+        """Dispatch-complete accounting shared by every lane.  On a mesh
+        every dispatch is sharded: a shard that fails fails its group."""
         self.perf.inc("dispatch")
+        if self.mesh is not None:
+            self.perf.inc("sharded_dispatch")
         self.perf.inc("bytes", nbytes)
 
     @staticmethod
@@ -843,28 +885,41 @@ class BatchingQueue:
 
     # -- staging (runs under _on_device) -----------------------------------
 
-    def _stage(self, g: _Group):
+    def _mesh_width(self, cols: int, align: int) -> int:
+        """A batch's width on the mesh: each shard a whole number of
+        `align`-column units (the batch's own width without a mesh)."""
+        if self.mesh is None:
+            return cols
+        return self.mesh.pad_cols(-(-cols // align)) * align
+
+    def _stage(self, g: _Group, align: int = 1):
         """Coalesce a group's packed uint8 requests column-wise into one
-        [n, sum(B)] batch on the device: on CUDA through a pinned buffer
-        and a non-blocking copy on the copy-in stream, which the compute
-        stream waits for.  Returns (widths, batch, nbytes)."""
+        [n, sum(B)] batch on the device (zero columns after them up to the
+        mesh's width): on CUDA through a pinned buffer and a non-blocking
+        copy on the copy-in stream, which the compute stream waits for.
+        Returns (widths, batch, nbytes); nbytes counts the requests' bytes,
+        not the pad."""
         widths = [req.regions.shape[1] for req in g.requests]
         rows, cols = g.requests[0].regions.shape[0], sum(widths)
         nbytes = rows * cols
+        padded = self._mesh_width(cols, align)
         if self._compute is None:
             regions = [np.asarray(req.regions, dtype=np.uint8)
                        for req in g.requests]
+            if padded > cols:
+                regions.append(np.zeros((rows, padded - cols), np.uint8))
             batch = (np.concatenate(regions, axis=1) if len(regions) > 1
                      else np.ascontiguousarray(regions[0]))
             return widths, torch.from_numpy(batch), nbytes
-        host = torch.empty((rows, cols), dtype=torch.uint8, pin_memory=True)
+        host = torch.empty((rows, padded), dtype=torch.uint8, pin_memory=True)
         view = host.numpy()
         off = 0
         for width, req in zip(widths, g.requests):
             view[:, off:off + width] = req.regions
             off += width
+        view[:, off:] = 0
         with torch.cuda.stream(self._copy_in):
-            batch = torch.empty((rows, cols), dtype=torch.uint8,
+            batch = torch.empty((rows, padded), dtype=torch.uint8,
                                 device=self.device)
             batch.copy_(host, non_blocking=True)
             staged = torch.cuda.Event()
@@ -902,15 +957,19 @@ class BatchingQueue:
             parts.append(x)
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
-    def _device_mbits(self, mbits: np.ndarray) -> torch.Tensor:
-        """The int8 bit-matrix on the device, cached by content (64)."""
-        key = (mbits.shape, np.ascontiguousarray(mbits, dtype=np.int8).tobytes())
+    def _device_mbits(self, mbits: np.ndarray,
+                      device: Optional[torch.device] = None) -> torch.Tensor:
+        """The int8 bit-matrix on `device` (the queue's by default: a shard
+        reads the copy on its own), cached by device and content (64)."""
+        device = self.device if device is None else device
+        key = (device, mbits.shape,
+               np.ascontiguousarray(mbits, dtype=np.int8).tobytes())
         with self._mats_lock:
             t = self._mats.get(key)
             if t is not None:
                 self._mats.move_to_end(key)
                 return t
-        t = bitmatrix_to_tensor(mbits, self.device)
+        t = bitmatrix_to_tensor(mbits, device)
         with self._mats_lock:
             self._mats[key] = t
             while len(self._mats) > 64:
@@ -930,12 +989,44 @@ class BatchingQueue:
                 seen.add(s.cuda_stream)
                 out.record_stream(s)
 
+    def _gathered(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """Shard products concatenated in column order on the queue's
+        device."""
+        return torch.cat([p if p.device == self.device
+                          else p.to(self.device, non_blocking=True)
+                          for p in parts], dim=-1)
+
+    def _on_shards(self, batch: torch.Tensor, fn):
+        """fn(batch) on the queue's device; on a mesh, fn of each shard on
+        the shard's device (the batch's columns zero-padded to a multiple
+        of the mesh's size first, unless _stage padded them), and each
+        product (fn returns a tensor or a tuple of them) gathered in column
+        order onto the queue's device."""
+        if self.mesh is None:
+            return fn(batch)
+        cols = batch.shape[-1]
+        width = self._mesh_width(cols, 1)
+        if width != cols:
+            padded = batch.new_zeros((*batch.shape[:-1], width))
+            padded[..., :cols] = batch
+            batch = padded
+        outs = []
+        for part, _bounds in self.mesh.shard_batch(batch):
+            with (torch.cuda.device(part.device) if part.is_cuda
+                  else contextlib.nullcontext()):
+                outs.append(fn(part))
+        if isinstance(outs[0], tuple):
+            return tuple(self._gathered([o[i] for o in outs])
+                         for i in range(len(outs[0])))
+        return self._gathered(outs)
+
     # -- lanes ---------------------------------------------------------------
 
     def _launch_packed(self, g: _Group):
-        widths, batch, nbytes = self._stage(g)
-        out = gf2_apply_bytes(self._device_mbits(g.mbits), batch, g.w,
-                              g.out_rows)
+        # a shard holds whole symbols: w=16 takes byte pairs
+        widths, batch, nbytes = self._stage(g, max(1, g.w // 8))
+        out = self._on_shards(batch, lambda x: gf2_apply_bytes(
+            self._device_mbits(g.mbits, x.device), x, g.w, g.out_rows))
         return widths, self._to_host(out), nbytes
 
     def _complete_packed(self, g: _Group, state) -> None:
@@ -952,7 +1043,8 @@ class BatchingQueue:
         """Matmul-only dispatch over int8 planes on the device; results
         stay there as planes."""
         widths = [req.regions.shape[1] for req in g.requests]
-        out = gf2_matmul(self._device_mbits(g.mbits), self._device_batch(g))
+        out = self._on_shards(self._device_batch(g), lambda x: gf2_matmul(
+            self._device_mbits(g.mbits, x.device), x))
         return widths, out
 
     def _complete_planar(self, g: _Group, state) -> None:
@@ -968,9 +1060,12 @@ class BatchingQueue:
         """Residency write path: one call (unpack, matmul, parity pack),
         both products fanned out: packed parity for persistence, planes to
         stay on the device."""
-        widths, batch, nbytes = self._stage(g)
-        packed, all_bits = gf2_encode_resident(
-            self._device_mbits(g.mbits), batch, g.w, g.out_rows)
+        widths, batch, nbytes = self._stage(g, max(1, g.w // 8))
+        packed, all_bits = self._on_shards(
+            batch, lambda x: gf2_encode_resident(
+                self._device_mbits(g.mbits, x.device), x, g.w, g.out_rows))
+        # the batch's width after any mesh pad: planar columns per byte
+        # column relate all_bits to the columns the product saw
         return (widths, self._to_host(packed), all_bits, nbytes,
                 batch.shape[1])
 
@@ -990,8 +1085,9 @@ class BatchingQueue:
     def _launch_packedbit(self, g: _Group):
         """One K4 launch over the coalesced packed rows: bytes -> plane
         words -> XOR schedule -> bytes, the schedule from the LRU."""
-        widths, batch, nbytes = self._stage(g)
-        out = gf2_apply_packedbit(g.mbits, batch)
+        # whole 32-byte plane words a shard
+        widths, batch, nbytes = self._stage(g, 32)
+        out = self._on_shards(batch, lambda x: gf2_apply_packedbit(g.mbits, x))
         return widths, self._to_host(out), nbytes
 
     # the same packed-byte fan-out
@@ -1002,8 +1098,11 @@ class BatchingQueue:
         fanned out (parity bytes, data and parity plane words).  Request
         widths are whole words (submit_packedbit_resident checks), so the
         word slices of the fan-out are exact."""
-        widths, batch, nbytes = self._stage(g)
-        packed, planes = gf2_encode_packedbit_resident(g.mbits, batch)
+        # whole 32-byte plane words a shard, so the gathered words are the
+        # unsharded batch's
+        widths, batch, nbytes = self._stage(g, 32)
+        packed, planes = self._on_shards(
+            batch, lambda x: gf2_encode_packedbit_resident(g.mbits, x))
         return widths, self._to_host(packed), planes, nbytes
 
     def _complete_packedbit_resident(self, g: _Group, state) -> None:
@@ -1012,7 +1111,8 @@ class BatchingQueue:
         widths, packed, planes, nbytes = state
         self._note_dispatch(nbytes)
         self._hand_over(g, planes)
-        if len(g.requests) == 1:
+        if len(g.requests) == 1 and packed.shape[1] == widths[0]:
+            # one request and no pad: the whole product, no slice
             self._resolve(g.requests[0], (packed.copy(), planes))
             return
         off = 0
@@ -1025,7 +1125,8 @@ class BatchingQueue:
         """Schedule-only dispatch over plane words on the device (one K3
         launch); results stay there as words."""
         widths = [req.regions.shape[1] for req in g.requests]  # words
-        return widths, gf2_xor_packed(g.mbits, self._device_batch(g))
+        return widths, self._on_shards(self._device_batch(g),
+                                       lambda x: gf2_xor_packed(g.mbits, x))
 
     def _complete_packedbit_planes(self, g: _Group, state) -> None:
         widths, out = state

@@ -1,7 +1,9 @@
 # Copy of ceph_tpu/rados/messenger.py at commit 4ac5bd2, with its ceph_tpu
 # import statements rebound to ceph_tpu_torch.  One seam differs: the rx
 # path's install staging takes the daemon's device (osd_ec_device).  Control
-# payloads unpickle through rados/unpickle.py.
+# payloads unpickle through rados/unpickle.py.  One repair: the flush loop
+# and adopt_transport write segment lists through _writelines, which refuses
+# a closing transport (the reference's connections can wedge there).
 """Async messenger: typed messages over an authenticated, crc-guarded,
 replay-safe framed TCP protocol.
 
@@ -1023,6 +1025,19 @@ class FrameReceiver(asyncio.BufferedProtocol):
                 pass
 
 
+def _writelines(writer, segs) -> None:
+    """writer.writelines(segs), refused with ConnectionResetError once the
+    writer's transport is closing.  asyncio's StreamWriter.writelines (on
+    Python 3.12), unlike write(), does not check for a lost connection: it
+    registers the transport's writer on a socket the loop is about to
+    close, and that stale registration breaks the next socket given the
+    same fd (its reader is never added, so it never reads)."""
+    transport = getattr(writer, "transport", None)
+    if transport is not None and transport.is_closing():
+        raise ConnectionResetError("connection lost")
+    writer.writelines(segs)
+
+
 class CorkedWriter:
     """Zero-copy scatter-gather tx path: once the handshake is done (and
     the transport's own write buffer is empty), the connection's flusher
@@ -1464,7 +1479,7 @@ class Connection:
                     t_io = time.monotonic()
                     try:
                         with perf.time_avg("tx_io"):
-                            self.writer.writelines(segs)
+                            _writelines(self.writer, segs)
                             await self.writer.drain()
                     except (ConnectionError, OSError,
                             asyncio.TimeoutError) as e:
@@ -2048,7 +2063,7 @@ class Connection:
             with self.messenger.perf.time_avg("tx_io"):
                 for _, data in list(self.unacked):
                     if isinstance(data, list):
-                        self.writer.writelines(data)
+                        _writelines(self.writer, data)
                         replayed += sum(len(p) for p in data)
                     else:
                         self.writer.write(data)

@@ -7,8 +7,9 @@ Phases; any failure exits nonzero before the result line is printed:
 
 1. build    nvcc builds every kernel library from ceph_tpu_torch/ops/csrc
             (one nvcc per source, all started together) and g++ the port's
-            crc32c library and native GF(2^8) core beside them; seconds and
-            ptxas register/spill lines are printed.
+            crc32c library, native GF(2^8) core, wirepath library and wirepy
+            shim beside them; seconds and ptxas register/spill lines are
+            printed.
 2. kernels  each kernel against its plain PyTorch version on the card, byte
             for byte, at the main path's shapes, at 2 MiB of columns, and at
             ragged, misaligned and wide shapes; CUDA-event medians with the
@@ -258,13 +259,58 @@ Phases; any failure exits nonzero before the result line is printed:
                findings.
             K4, K1 and K3 must launch.  Each line is "tools {...}" with the
             card's name and power limit.
-11. split   host prepare / host->device / kernel call (apply_packedbit,
+11. wire    the native wire path, with every launch count set to 0 just
+            before and read just after (the "wire" run):
+            a. the port resolves the native arm (wirepath.kind() ==
+               "native"; anything else fails the phase) and the library's
+               selftest returns 0;
+            b. every wire_* and wirepy_* entry point against the python arm
+               (the process checksum a segment, joins, slices) on 12 frames
+               of the committed corpus/wire, each cut into awkward segments;
+            c. two of the port's messengers over TCP, ms_wirepath_native on
+               and off in turns (native, python, python, native), 48 seeded
+               messages of up to 1 MiB, with injected socket failures and
+               duplicated frames and then without: dispatch exactly once,
+               in order, the same bytes; native_tx_calls > 0 only on the
+               native turns; MB/s of each turn on the card host's CPU.  Then
+               a pair with ms_reactor_mode=process, forked from this
+               process while it holds a CUDA context: striped messages
+               through the workers exactly once and in order;
+            d. the osd phase's 12-OSD plugin=cuda k=8 m=3 cluster over TCP
+               (ms_local_fastpath off, as the --wire-floor gate runs it), a
+               cluster a turn in the same turns, 16 seeded 4 MiB puts and
+               gets, 8 in flight: put and get GB/s, the p50 of a put's
+               encoded->sub_writes_sent step, wirepath_kind and
+               native_tx_calls of every messenger, every read checked.
+            Each line is "wire {...}" with the card's name and power limit.
+12. mesh    the batching queue on a mesh: CEPH_TPU_MESH=1 on a host with one
+            card lays each dispatch over 8 shards of it (every shard on the
+            card, or the phase fails), with every launch count set to 0
+            just before and read just after (the "mesh" run):
+            a. the six lanes on one 4 MiB k=8 m=3 object's rows through a
+               queue on the mesh (packedbit, packedbit_resident and
+               packedbit_planes with the packed-bit lane on; packed,
+               resident and planar with CEPH_TPU_PACKEDBIT=0): each equal
+               byte for byte to a mesh=False queue's (launches uncounted)
+               and to the CPU plugin=jerasure's shards, one sharded
+               dispatch each, one launch of its kernel (K4, K3, K1, K2) a
+               shard;
+            b. 64 seeded 4 MiB writes through ecutil into the mesh queue and
+               a mesh=False queue in turns (mesh, single, single, mesh):
+               GB/s of each, their ratio, and K4 launches of the mesh turns
+               (one a shard a dispatch);
+            c. tests/test_mesh.py's case on the card: a 3-OSD cluster with
+               concurrent puts of 12 objects of 50,000 bytes; the puts
+               coalesce, every dispatch rides the mesh (one launch a shard)
+               and every get reads back.
+            Each line is "mesh {...}" with the card's name and power limit.
+13. split   host prepare / host->device / kernel call (apply_packedbit,
             the lane's one launch) / device->host of one 4 MiB encode (the
             codec API takes host bytes), and the device's busy share over
             back-to-back encodes from torch.profiler.
-12. report  the card, one {"kernels": [...]} line (each row's "launches" is
-            the sum of its counts in phases 3 to 10, "launches_by_run" the
-            eleven runs), and the result line.
+14. report  the card, one {"kernels": [...]} line (each row's "launches" is
+            the sum of its counts in phases 3 to 12, "launches_by_run" the
+            thirteen runs), and the result line.
 """
 
 from __future__ import annotations
@@ -407,25 +453,32 @@ def phase_build() -> None:
     from ceph_tpu_torch.utils import checksum
 
     t0 = time.perf_counter()
-    crc_s = []
+    host_s = {}
+    errors = []
 
-    def build_crc():  # g++ of the host libraries beside the nvcc builds
-        checksum.build()
-        crc_s.append(time.perf_counter() - t0)
-        bridge.build()
-        crc_s.append(time.perf_counter() - t0)
+    def gxx(name, fn):  # g++ of a host library beside the nvcc builds
+        try:
+            fn()
+            host_s[name] = time.perf_counter() - t0
+        except Exception as e:
+            errors.append(f"{name}: {e}")
 
-    crc = threading.Thread(target=build_crc)
-    crc.start()
+    host = [threading.Thread(target=gxx, args=item) for item in (
+        ("crc32c", checksum.build), ("native GF core", bridge.build),
+        ("wirepath library", bridge.build_wire),
+        ("wirepy shim", bridge.build_wirepy))]
+    for t in host:
+        t.start()
     results = build.build_all()
-    crc.join()
+    for t in host:
+        t.join()
+    check(not errors, "a host library did not build: " + "; ".join(errors))
     check(checksum.checksum_kind() == "crc32c",
           "the port's crc32c library did not build")
-    check(len(crc_s) == 2, "the port's native GF core did not build")
     print(f"build: {time.perf_counter() - t0:.2f}s total "
           f"({', '.join(f'{n} {s:.2f}s' for n, (s, _) in results.items())}"
-          f", crc32c {crc_s[0] if crc_s else float('nan'):.2f}s"
-          f", native GF core {crc_s[1] if len(crc_s) > 1 else float('nan'):.2f}s)")
+          f", {', '.join(f'{n} {s:.2f}s' for n, s in host_s.items())}"
+          f"; each time from the start of the build)")
     for name, (_, log) in results.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -3422,6 +3475,644 @@ def phase_tools(device, card):
     return counts
 
 
+# ------------------------------------------------------------- phase wire --
+
+WIRE_FRAMES = 12             # corpus frames of step b
+WIRE_MESSAGES = 48           # messages of a messenger turn ...
+WIRE_MESSAGE_BYTES = 1 << 20  # ... of up to 1 MiB
+WIRE_OBJECTS = 16            # 4 MiB puts and gets of a cluster turn
+WIRE_ARMS = ("native", "python", "python", "native")
+
+
+def _wire_entry_points(emit) -> None:
+    """Step b: every wire_* and wirepy_* entry point against the python arm
+    (the process checksum a segment, joins and slices) on the committed
+    frame corpus, each frame cut into awkward segments."""
+    import socket
+
+    from ceph_tpu_torch.native import bridge
+    from ceph_tpu_torch.utils import checksum
+
+    wire_dir = os.path.join(ROOT, "corpus", "wire")
+    names = sorted(n for n in os.listdir(wire_dir)
+                   if n.endswith(".frame"))[:WIRE_FRAMES]
+    check(len(names) == WIRE_FRAMES, f"wire corpus holds {len(names)} frames")
+    calls = collections.Counter()
+    t0 = time.perf_counter()
+    for name in names:
+        with open(os.path.join(wire_dir, name), "rb") as f:
+            raw = f.read()
+        c1, c2 = max(1, len(raw) // 3), max(2, 2 * len(raw) // 3)
+        segs = [raw[:c1], bytearray(raw[c1:c2]), memoryview(raw)[c2:], b""]
+        want = 0
+        for s in segs:
+            want = checksum.checksum(s, want)
+
+        def same(fn, got, expect):
+            calls[fn] += 1
+            check(got == expect, f"wire {name}: {fn} gave {got!r}, the "
+                  f"python arm {expect!r}")
+
+        same("crc32c", bridge.crc32c(raw, 7), checksum.checksum(raw, 7))
+        same("wire_crc_batch", bridge.wire_crc_batch([segs, segs[1:]],
+                                                     seeds=[0, 5]),
+             [want, checksum.checksum(raw[c1:], 5)])
+        same("wirepy_crc_chain", bridge.wirepy_crc_chain(list(segs)), want)
+        for fn in ("wire_gather", "wirepy_gather"):
+            out = bytearray(len(raw))
+            n = getattr(bridge, fn)(list(segs), out)
+            same(fn, (n, bytes(out)), (len(raw), raw))
+        dst = bytearray(len(raw))
+        same("wire_copy_crc32c", (bridge.wire_copy_crc32c(raw, dst, 3),
+                                  bytes(dst)),
+             (checksum.checksum(raw, 3), raw))
+        offs, lens = [0, c1, c2], [c1, c2 - c1, len(raw) - c2]
+        wants = [checksum.checksum(raw[o:o + n]) for o, n in zip(offs, lens)]
+        for fn in ("wire_verify_regions", "wirepy_verify_regions"):
+            same(fn, getattr(bridge, fn)(raw, offs, lens, wants), -1)
+            same(fn, getattr(bridge, fn)(raw, offs, lens,
+                                         [wants[0], wants[1] ^ 1, wants[2]]),
+                 1)
+        back = bytearray(len(raw))
+        rc = bridge.wire_scatter([segs[2], segs[0], segs[1]], [c2, 0, c1],
+                                 back, want_crcs=[wants[2], wants[0],
+                                                  wants[1]])
+        same("wire_scatter", (rc, bytes(back)), ((3, -1), raw))
+        parts = [bytearray(n) for n in lens]
+        n = bridge.wirepy_scatter_from(raw, offs, parts)
+        same("wirepy_scatter_from", (n, b"".join(parts)), (len(raw), raw))
+        for fn in ("wire_writev", "wirepy_writev"):
+            a, z = socket.socketpair()
+            try:
+                a.setblocking(False)
+                sent = getattr(bridge, fn)(a.fileno(), list(segs), 0)
+                got = b""
+                while len(got) < sent:
+                    got += z.recv(1 << 20)
+                same(fn, (sent, got), (len(raw), raw))
+            finally:
+                a.close()
+                z.close()
+    emit("entry points", frames=len(names),
+         frame_bytes=sum(os.path.getsize(os.path.join(wire_dir, n))
+                         for n in names),
+         calls=dict(calls), seconds=time.perf_counter() - t0)
+
+
+def _wire_messengers(emit) -> dict:
+    """Step c: two of the port's messengers over TCP, the native arm and
+    the python arm in turns; returns MB/s of each arm's turns."""
+    import asyncio
+
+    from ceph_tpu_torch.rados.messenger import Messenger, message
+
+    @message(9821)
+    class MWireSmoke:
+        seq: int = 0
+        blob: bytes = b""
+
+    rng = np.random.default_rng(SEED + 20)
+    sizes = rng.integers(1, WIRE_MESSAGE_BYTES + 1, WIRE_MESSAGES)
+    blobs = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+             for n in sizes]
+    total = sum(len(b) for b in blobs)
+    want = [(i, b) for i, b in enumerate(blobs)]
+
+    async def turn(native: bool, inject: bool):
+        conf = {"ms_wirepath_native": native}
+        if inject:
+            conf.update(ms_inject_socket_failures=9, ms_inject_dup_frames=5)
+        server = Messenger("server", dict(conf), entity_type="osd")
+        client = Messenger("client", dict(conf), entity_type="osd")
+        addr = await server.bind()
+        got = []
+        done = asyncio.Event()
+
+        async def dispatch(conn, msg):
+            got.append((msg.seq, bytes(msg.blob)))
+            if len(got) >= WIRE_MESSAGES:
+                done.set()
+
+        server.dispatcher = dispatch
+        t0 = time.perf_counter()
+        for i, b in enumerate(blobs):
+            await client.send(addr, MWireSmoke(seq=i, blob=b), retries=10)
+        await asyncio.wait_for(done.wait(), 120)
+        seconds = time.perf_counter() - t0
+        await asyncio.sleep(0.2)  # a late duplicate would show here
+        perf = client.perf.dump()
+        kinds = (perf["wirepath_kind"], server.perf.dump()["wirepath_kind"])
+        await client.shutdown()
+        await server.shutdown()
+        return got, seconds, perf, kinds
+
+    rates = collections.defaultdict(list)
+    for arm in WIRE_ARMS:
+        native = arm == "native"
+        for inject in (True, False):
+            got, seconds, perf, kinds = asyncio.run(turn(native, inject))
+            check(got == want, f"wire messengers ({arm}, injected={inject}): "
+                  "dispatch not exactly once, in order, byte-identical")
+            check(kinds == ((1, 1) if native else (0, 0)),
+                  f"wire messengers ({arm}): wirepath_kind {kinds}")
+            check((perf["native_tx_calls"] > 0) == native,
+                  f"wire messengers ({arm}): native_tx_calls "
+                  f"{perf['native_tx_calls']}")
+            if not inject:
+                rates[arm].append(total / seconds / 1e6)
+            emit("messengers", arm=arm, injected=inject,
+                 messages=WIRE_MESSAGES, bytes=total, seconds=seconds,
+                 MB_per_s=total / seconds / 1e6,
+                 native_tx_calls=perf["native_tx_calls"],
+                 native_rx_calls=perf["native_rx_calls"],
+                 native_bytes=perf["native_bytes"], wirepath_kind=kinds[0])
+    return dict(rates)
+
+
+def _wire_process_reactors(device, emit) -> None:
+    """Step c, process reactors: a messenger pair with ms_reactor_mode=
+    process forks its workers from this process, which holds a CUDA
+    context by now; the workers never touch CUDA.  Striped messages go
+    through them on the native arm, exactly once and in order."""
+    import asyncio
+
+    import torch
+
+    from ceph_tpu_torch.rados.messenger import Messenger, message
+
+    @message(9822)
+    class MWireProc:
+        seq: int = 0
+        kind: str = "a"
+        data: bytes = b""
+        gseq: int = 0
+
+    MWireProc.LANE_STRIPE = True
+    MWireProc.BLOB_ATTR = "data"
+    MWireProc.BLOB_VIEW_OK = True
+    MWireProc.FIXED_FIELDS = [("seq", "q"), ("kind", "s"), ("data", "y"),
+                              ("gseq", "Q")]
+    conf = {"ms_reactor_mode": "process", "ms_lanes_per_peer": 3,
+            "ms_async_op_threads": 2, "ms_wirepath_native": True,
+            "osd_ec_device": str(device)}
+    payloads = [bytes([(i * 13 + j) & 0xFF for j in range(256)])
+                * (1 + (i % 5) * 400) for i in range(WIRE_MESSAGES)]
+    cuda_live = torch.cuda.is_initialized()
+
+    async def go():
+        a = Messenger("a", dict(conf))
+        b = Messenger("b", dict(conf), entity_type="osd")
+        await a.bind()
+        addr_b = tuple(await b.bind())
+        got = []
+        done = asyncio.Event()
+
+        async def disp(conn, msg):
+            got.append((msg.seq, bytes(msg.data)))
+            if len(got) >= len(payloads):
+                done.set()
+
+        b.dispatcher = disp
+        for i, p in enumerate(payloads):
+            await a.send(addr_b, MWireProc(seq=i, data=p))
+        await asyncio.wait_for(done.wait(), 60)
+        dump = a.dump_reactors()
+        await a.shutdown()
+        await b.shutdown()
+        return got, dump
+
+    got, dump = asyncio.run(go())
+    check(got == list(enumerate(payloads)),
+          "process reactors: dispatch not exactly once and in order")
+    check(dump["reactor_mode"] == "process" and all(dump["worker_pids"]),
+          "process reactors: no worker process ran")
+    emit("process reactors", cuda_context_live_at_fork=cuda_live,
+         workers=len(dump["worker_pids"]), messages=len(payloads),
+         worker_wirepath_kind=dump["proc_perf"].get("wirepath_kind"),
+         worker_tx_bytes=dump["proc_perf"].get("tx_bytes"))
+
+
+def _wire_cluster(device, emit) -> dict:
+    """Step d: the osd phase's 12-OSD plugin=cuda k=8 m=3 cluster over TCP
+    (ms_local_fastpath off, as the --wire-floor gate runs: colocated
+    daemons would take the in-process fastpath and never reach the wire),
+    one cluster a turn with every messenger on the native or the python
+    arm; returns each arm's put and get GB/s."""
+    import asyncio
+
+    from ceph_tpu_torch.rados import osd as osdmod
+    from ceph_tpu_torch.rados.vstart import Cluster
+
+    rng = np.random.default_rng(SEED + 21)
+    objects = {f"wire-{i}": rng.integers(0, 256, OBJECT_SIZE,
+                                         dtype=np.uint8).tobytes()
+               for i in range(WIRE_OBJECTS)}
+    total = OBJECT_SIZE * WIRE_OBJECTS
+
+    async def turn(arm):
+        conf = {"osd_ec_device": str(device), "osd_auto_repair": False,
+                "client_op_timeout": 60.0, "osd_op_history_size": 4096,
+                "ms_local_fastpath": False,
+                "ms_wirepath_native": arm == "native"}
+        cluster = Cluster(n_osds=OSD_COUNT, conf=conf)
+        await cluster.start()
+        client = await cluster.client()
+        try:
+            pool = await client.create_pool(
+                "wire", "ec", pg_num=OSD_PG_NUM, profile=dict(OSD_POOL))
+            gate = asyncio.Semaphore(OSD_IN_FLIGHT)
+
+            async def one(fn, oid):
+                async with gate:
+                    return await fn(oid)
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*(one(lambda o: client.put(
+                pool, o, objects[o]), oid) for oid in objects))
+            put_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(one(lambda o: client.get(pool, o),
+                                             oid) for oid in objects))
+            get_s = time.perf_counter() - t0
+            for oid, data in zip(objects, got):
+                check(bytes(data) == objects[oid],
+                      f"wire cluster ({arm}): {oid} read back wrong")
+            osds = list(cluster.osds.values())
+            steps = _op_step_gaps(osds, "write", set())
+            msgrs = [o.messenger for o in osds] + [client.messenger]
+            kinds = {m.perf.get("wirepath_kind") for m in msgrs}
+            tx = sum(m.perf.get("native_tx_calls") for m in msgrs)
+            frames = sum(m.perf.get("tx_msgs") for m in msgrs)
+            return put_s, get_s, steps, kinds, tx, frames
+        finally:
+            await client.stop()
+            await cluster.stop()
+
+    rates = collections.defaultdict(list)
+    try:
+        for arm in WIRE_ARMS:
+            try:
+                put_s, get_s, steps, kinds, tx, frames = asyncio.run(
+                    asyncio.wait_for(turn(arm), 300))
+            finally:
+                if osdmod._BATCH_QUEUE is not None:
+                    osdmod._BATCH_QUEUE.close()
+                osdmod._BATCH_QUEUE = osdmod._PLANAR_STORE = None
+            check(kinds == ({1} if arm == "native" else {0}),
+                  f"wire cluster ({arm}): wirepath_kind {kinds}")
+            check((tx > 0) == (arm == "native") and frames > 0,
+                  f"wire cluster ({arm}): native_tx_calls {tx}, tx_msgs "
+                  f"{frames}")
+            rates[arm].append((total / put_s / 1e9, total / get_s / 1e9))
+            sub = steps.get("encoded->sub_writes_sent", {})
+            emit("cluster", arm=arm, transport="tcp", objects=WIRE_OBJECTS,
+                 put_GB_per_s=total / put_s / 1e9,
+                 get_GB_per_s=total / get_s / 1e9,
+                 sub_write_step_p50_us=sub.get("p50_us"),
+                 sub_write_step_count=sub.get("count"),
+                 wirepath_kind=kinds.pop(), native_tx_calls=tx,
+                 tx_msgs=frames)
+    finally:
+        osdmod._BATCH_QUEUE = osdmod._PLANAR_STORE = None
+    return dict(rates)
+
+
+def phase_wire(device, card):
+    """The native wire path on the card host: the selftest, every entry
+    point against the python arm, a messenger pair and the 12-OSD cluster
+    on each arm in turns.  Returns each kernel's launch count in this run
+    (the cluster's)."""
+    from ceph_tpu_torch.native import bridge
+    from ceph_tpu_torch.utils import wirepath
+
+    def emit(step, **numbers):
+        print("wire " + json.dumps({"step": step, **numbers, "card": card}),
+              flush=True)
+
+    t_phase = time.perf_counter()
+    check(wirepath.kind() == "native" and wirepath.impl() is bridge,
+          f"wire: the port resolved the {wirepath.kind()} arm on the card "
+          "host")
+    check(bridge.wirepath_selftest() == 0, "wire: wirepath selftest failed")
+    emit("resolve", kind=wirepath.kind(), selftest=0,
+         wire_library=os.path.basename(bridge.wire_library_path()),
+         wirepy_library=os.path.basename(bridge.wirepy_library_path()),
+         cpu=_cpu_model(), cpus=os.cpu_count())
+    _zero_counts()
+    _wire_entry_points(emit)
+    rates = _wire_messengers(emit)
+    _wire_process_reactors(device, emit)
+    cluster = _wire_cluster(device, emit)
+    counts, _ = _read_counts(device, "(wire)")
+    check(counts["apply_packedbit"] > 0, "wire: K4 never launched")
+    emit("summary", messenger_MB_per_s=rates, cluster_GB_per_s={
+        arm: {"put": [p for p, _ in v], "get": [g for _, g in v]}
+        for arm, v in cluster.items()})
+    print(f"wire: phase {time.perf_counter() - t_phase:.2f}s wall")
+    return counts
+
+
+# ------------------------------------------------------------- phase mesh --
+
+MESH_OBJECTS = 64            # writes of a turn of step b
+MESH_OSD_OBJECTS = 12        # concurrent puts of step c, 50,000 bytes each
+MESH_OSD_POOL = {"plugin": "jerasure", "technique": "reed_sol_van",
+                 "k": "2", "m": "1"}
+
+
+def _mesh_lanes(device, mesh, emit) -> dict:
+    """Step a: the six lanes on one 4 MiB k=8 m=3 object's rows through a
+    queue on the mesh and a mesh=False queue (launches uncounted), each
+    against the other and the CPU codec.  Returns per lane the launches of
+    its kernel and the mesh queue's dispatches."""
+    import torch
+
+    from ceph_tpu_torch.ec.matrices import matrix_to_bitmatrix
+    from ceph_tpu_torch.ops import gf2 as lane
+    from ceph_tpu_torch.parallel.service import BatchingQueue
+    from ceph_tpu_torch.rados import ecutil
+    from ceph_tpu_torch.utils.cudadev import resolve_device
+
+    codec = _codec("cuda", device, technique="reed_sol_van", k=8, m=3)
+    cpu = _codec("jerasure", "cpu", technique="reed_sol_van", k=8, m=3)
+    sinfo = ecutil.StripeInfo(k=8, stripe_width=8 * STRIPE_UNIT)
+    obj = np.random.default_rng(SEED + 30).integers(
+        0, 256, OBJECT_SIZE, dtype=np.uint8).tobytes()
+    shards = ecutil.batched_encode(cpu, sinfo, obj)
+    rows = np.stack(shards[:8])
+    parity = np.stack(shards[8:])
+    bm = matrix_to_bitmatrix(codec.matrix, 8)
+    lost = (0, 4, 7)
+    chosen, inv = codec.decode_selection(set(lost), set(range(11)) - set(lost))
+    decode = resident_decode_bitmatrix(
+        matrix_to_bitmatrix(inv[list(lost)], 8), chosen)
+    with _uncounted(device):
+        data = torch.from_numpy(rows).to(device)
+        words = lane.gf2_encode_packedbit_resident(bm, data)[1]
+        bits = lane.unpack_bits_bytes(data, 8)
+    damaged = words.clone()
+    for c in lost:
+        damaged[c * 8:(c + 1) * 8] = 0
+    # lane -> (packed-bit lane switch, kernel, submit call)
+    lanes = {
+        "packedbit": ("1", "apply_packedbit", lambda q: q.submit_packedbit(
+            bm.astype(np.uint8), rows, 8, 3)),
+        "packedbit_resident": ("1", "apply_packedbit",
+                               lambda q: q.submit_packedbit_resident(
+                                   bm.astype(np.uint8), rows, 8, 3)),
+        "packedbit_planes": ("1", "xor_schedule",
+                             lambda q: q.submit_packedbit_planes(
+                                 decode, damaged, 8, len(lost))),
+        "packed": ("0", "apply_bytes_w8", lambda q: q.submit(
+            bm.astype(np.int8), rows, 8, 3)),
+        "resident": ("0", "gf2_matmul", lambda q: q.submit_resident(
+            bm.astype(np.int8), rows, 8, 3)),
+        "planar": ("0", "gf2_matmul", lambda q: q.submit_planar(
+            bm.astype(np.int8), bits, 8, 3)),
+    }
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    def against_cpu(name, out):
+        """The lane's product held against the CPU codec's shards."""
+        with _uncounted(device):
+            if name in ("packedbit", "packed"):
+                got = out
+            elif name in ("packedbit_resident", "resident"):
+                got = out[0]
+                planes = (lane.from_packedbit(out[1], 11)
+                          if name == "packedbit_resident"
+                          else lane.from_planar(out[1], 8, 11))
+                check(np.array_equal(
+                    host(planes)[:, :rows.shape[1]],
+                    np.concatenate([rows, parity])),
+                      f"mesh {name}: planes differ from the CPU codec's")
+            elif name == "packedbit_planes":
+                rebuilt = host(lane.from_packedbit(out, len(lost)))
+                check(all(np.array_equal(rebuilt[i, :rows.shape[1]], rows[c])
+                          for i, c in enumerate(lost)),
+                      "mesh packedbit_planes: rebuilt chunks wrong")
+                return
+            else:  # planar
+                got = host(lane.from_planar(out, 8, 3))
+        check(np.array_equal(host(got), parity),
+              f"mesh {name}: parity differs from the CPU codec's")
+
+    on_mesh = BatchingQueue(device=device, max_delay=60.0, mesh=mesh)
+    single = BatchingQueue(device=device, max_delay=60.0, mesh=False)
+    out = {}
+    try:
+        check(on_mesh.mesh is mesh and single.mesh is None,
+              "mesh: the queues did not take the mesh as given")
+        for name, (switch, kernel, submit) in lanes.items():
+            with _env(CEPH_TPU_PACKEDBIT=switch):
+                fn = _wrappers()[kernel]
+                sync(device)
+                before = (fn.launches, on_mesh.dispatches,
+                          on_mesh.sharded_dispatches, mesh.shard_puts)
+                fut = submit(on_mesh)
+                on_mesh.flush()
+                got = fut.result(timeout=120)
+                sync(device)
+                launches = fn.launches - before[0]
+                dispatches = on_mesh.dispatches - before[1]
+                sharded = on_mesh.sharded_dispatches - before[2]
+                puts = mesh.shard_puts - before[3]
+                with _uncounted(device):
+                    fut = submit(single)
+                    single.flush()
+                    want = fut.result(timeout=120)
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                if isinstance(g, torch.Tensor):
+                    check(g.device == resolve_device(device),
+                          f"mesh {name}: a product is on {g.device}")
+                check(np.array_equal(host(g), host(w)),
+                      f"mesh {name}: differs from the mesh=False queue")
+            against_cpu(name, got)
+            check(sharded == dispatches == puts == 1,
+                  f"mesh {name}: {dispatches} dispatches, {sharded} "
+                  f"sharded, {puts} shard puts")
+            check(launches == mesh.n_devices * dispatches,
+                  f"mesh {name}: {launches} {kernel} launches for "
+                  f"{dispatches} dispatch on {mesh.n_devices} shards")
+            out[name] = {"kernel": kernel, "launches": launches,
+                         "dispatches": dispatches}
+            emit("lane", lane=name, kernel=kernel, launches=launches,
+                 dispatches=dispatches, sharded_dispatches=sharded,
+                 equal_to_single_device=True, equal_to_cpu_codec=True)
+    finally:
+        on_mesh.close()
+        single.close()
+    return out
+
+
+def _mesh_writes(device, mesh, emit) -> dict:
+    """Step b: 64 4 MiB writes through ecutil into a queue on the mesh and
+    a mesh=False queue, in turns; GB/s of each and their ratio."""
+    import asyncio
+
+    from ceph_tpu_torch.ops import cuda_packedbit
+    from ceph_tpu_torch.parallel.service import BatchingQueue
+    from ceph_tpu_torch.rados import ecutil
+
+    codec = _codec("cuda", device, technique="reed_sol_van", k=8, m=3)
+    sinfo = ecutil.StripeInfo(k=8, stripe_width=8 * STRIPE_UNIT)
+    rng = np.random.default_rng(SEED + 31)
+    objs = [rng.integers(0, 256, OBJECT_SIZE, dtype=np.uint8).tobytes()
+            for _ in range(MESH_OBJECTS)]
+    total = OBJECT_SIZE * MESH_OBJECTS
+
+    async def writes(q):
+        return await asyncio.gather(*(ecutil.batched_encode_async(
+            codec, sinfo, o, queue=q) for o in objs))
+
+    queues = {"mesh": BatchingQueue(device=device, mesh=mesh),
+              "single": BatchingQueue(device=device, mesh=False)}
+    rates = collections.defaultdict(list)
+    want = None
+    try:
+        for arm in ("mesh", "single", "single", "mesh"):
+            q = queues[arm]
+            d0, s0 = q.dispatches, q.sharded_dispatches
+            k4 = cuda_packedbit.apply_packedbit.launches
+            ctx = _uncounted(device) if arm == "single" else \
+                contextlib.nullcontext()
+            with ctx:
+                t0 = time.perf_counter()
+                got = asyncio.run(writes(q))
+                seconds = time.perf_counter() - t0
+                launches = cuda_packedbit.apply_packedbit.launches - k4
+            if want is None:
+                want = got
+            check(all(len(g) == len(w) == 11 and all(
+                np.array_equal(a, b) for a, b in zip(g, w))
+                for g, w in zip(got, want)),
+                f"mesh writes ({arm}): shards differ from the first turn's")
+            dispatches = q.dispatches - d0
+            sharded = q.sharded_dispatches - s0
+            if arm == "mesh":
+                check(sharded == dispatches > 0
+                      and launches == mesh.n_devices * dispatches,
+                      f"mesh writes: {dispatches} dispatches, {sharded} "
+                      f"sharded, {launches} K4 launches")
+            else:
+                check(sharded == 0, "mesh=False queue sharded a dispatch")
+            rates[arm].append(total / seconds / 1e9)
+            emit("writes", arm=arm, objects=MESH_OBJECTS, seconds=seconds,
+                 GB_per_s=total / seconds / 1e9, dispatches=dispatches,
+                 sharded_dispatches=sharded,
+                 k4_launches=launches if arm == "mesh" else None)
+    finally:
+        for q in queues.values():
+            q.close()
+    mesh_gbps = statistics.median(rates["mesh"])
+    single_gbps = statistics.median(rates["single"])
+    emit("writes summary", mesh_GB_per_s=rates["mesh"],
+         single_GB_per_s=rates["single"],
+         mesh_vs_single_ratio=mesh_gbps / single_gbps)
+    return dict(rates)
+
+
+def _mesh_cluster(device, mesh, emit) -> None:
+    """Step c: a 3-OSD cluster on the card under CEPH_TPU_MESH=1 with
+    concurrent puts of 12 objects (tests/test_mesh.py's case): the puts
+    coalesce, every dispatch rides the mesh, every get reads back."""
+    import asyncio
+
+    from ceph_tpu_torch.rados import osd as osdmod
+    from ceph_tpu_torch.rados.vstart import Cluster
+
+    rng = np.random.default_rng(SEED + 32)
+    blobs = [rng.integers(0, 256, 50_000, dtype=np.uint8).tobytes()
+             for _ in range(MESH_OSD_OBJECTS)]
+    kernels = ("apply_packedbit", "xor_schedule", "apply_bytes_w8",
+               "gf2_matmul")
+
+    async def go():
+        cluster = Cluster(n_osds=3, conf={
+            "osd_ec_device": str(device), "osd_auto_repair": False,
+            "client_op_timeout": 60.0})
+        await cluster.start()
+        client = await cluster.client()
+        try:
+            pool = await client.create_pool("mq", profile=dict(MESH_OSD_POOL))
+            q = osdmod.shared_batching_queue(device)
+            check(q is not None and q.mesh is mesh,
+                  "mesh cluster: the OSDs' queue is not on the mesh")
+            await client.put(pool, "warm", bytes(8192))
+            sync(device)
+            before = (q.dispatches, q.sharded_dispatches,
+                      sum(_wrappers()[k].launches for k in kernels))
+            await asyncio.gather(*(client.put(pool, f"o{i}", b)
+                                   for i, b in enumerate(blobs)))
+            sync(device)
+            dispatches = q.dispatches - before[0]
+            sharded = q.sharded_dispatches - before[1]
+            launches = sum(_wrappers()[k].launches
+                           for k in kernels) - before[2]
+            got = [bytes(await client.get(pool, f"o{i}"))
+                   for i in range(len(blobs))]
+            return dispatches, sharded, launches, got
+        finally:
+            await client.stop()
+            await cluster.stop()
+
+    try:
+        dispatches, sharded, launches, got = asyncio.run(
+            asyncio.wait_for(go(), 300))
+    finally:
+        if osdmod._BATCH_QUEUE is not None:
+            osdmod._BATCH_QUEUE.close()
+        osdmod._BATCH_QUEUE = osdmod._PLANAR_STORE = None
+    check(0 < dispatches < len(blobs), f"mesh cluster: {dispatches} "
+          f"dispatches for {len(blobs)} concurrent puts (not coalesced)")
+    check(sharded == dispatches, f"mesh cluster: only {sharded} of "
+          f"{dispatches} dispatches rode the mesh")
+    check(launches == mesh.n_devices * dispatches,
+          f"mesh cluster: {launches} launches for {dispatches} dispatches")
+    check(got == blobs, "mesh cluster: a get read back wrong")
+    emit("cluster", osds=3, puts=len(blobs), object_bytes=50_000,
+         dispatches=dispatches, sharded_dispatches=sharded,
+         launches=launches, gets_equal=True)
+
+
+def phase_mesh(device, card):
+    """The batching queue on a mesh: CEPH_TPU_MESH=1 on a host with one
+    card lays each dispatch over 8 shards of it.  Returns each kernel's
+    launch count in this run (the mesh queues' and the cluster's)."""
+    import torch
+
+    from ceph_tpu_torch.parallel import mesh as meshmod
+
+    def emit(step, **numbers):
+        print("mesh " + json.dumps({"step": step, **numbers, "card": card}),
+              flush=True)
+
+    t_phase = time.perf_counter()
+    with _env(CEPH_TPU_MESH="1"):
+        mesh = meshmod.shared_mesh(device)
+        check(mesh is not None, "mesh: CEPH_TPU_MESH=1 built no mesh")
+        check(all(d.type == "cuda" for d in mesh.devices),
+              f"mesh: a shard is off the card: {mesh.devices}")
+        emit("layout", device_count=torch.cuda.device_count(),
+             devices=[str(d) for d in mesh.devices],
+             axes=dict(zip(mesh.axis_names, mesh.mesh.shape)),
+             n_devices=mesh.n_devices)
+        _zero_counts()
+        lanes = _mesh_lanes(device, mesh, emit)
+        _mesh_writes(device, mesh, emit)
+        _mesh_cluster(device, mesh, emit)
+        counts, _ = _read_counts(device, "(mesh)")
+    for name in ("apply_packedbit", "xor_schedule", "apply_bytes_w8",
+                 "gf2_matmul"):
+        check(counts[name] > 0, f"mesh: {name} never launched")
+    emit("launches", per_lane=lanes, **counts)
+    print(f"mesh: phase {time.perf_counter() - t_phase:.2f}s wall")
+    return counts
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -3465,6 +4156,10 @@ def main() -> int:
             counts[name]["services"] = n
         for name, n in phase_tools("cuda", card).items():
             counts[name]["tools"] = n
+        for name, n in phase_wire("cuda", card).items():
+            counts[name]["wire"] = n
+        for name, n in phase_mesh("cuda", card).items():
+            counts[name]["mesh"] = n
         phase_split("cuda")
         kernels = []
         for name, (source, replaces) in KERNEL_META.items():

@@ -395,6 +395,85 @@ def test_queue_plane_lanes_match_cpu_queue(card):
             assert np.array_equal(host(a), host(b))
 
 
+@pytest.mark.parametrize("layout", ["eight_shards_of_one_card",
+                                    "every_card"])
+def test_queue_on_a_mesh_matches_one_device(card, monkeypatch, layout):
+    """All six lanes through a queue on a mesh (8 shards of the card, or
+    every visible card) equal a mesh=False queue's byte for byte; every
+    dispatch is sharded, each shard one launch of the lane's kernel."""
+    from ceph_tpu_torch.parallel.mesh import MeshDispatcher
+
+    if layout == "every_card":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two or more cards")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [torch.device("cuda", torch.cuda.current_device())] * 8
+    rng = np.random.default_rng(23)
+    bm = matrix_to_bitmatrix(vandermonde_coding_matrix(8, 3, 8), 8)
+    data = [rng.integers(0, 256, (8, B), dtype=np.uint8)
+            for B in (4096, 12288, 1000)]
+
+    def drive(q, lane_off):
+        out = []
+        aligned = data[:2]  # the packed-bit resident lane takes whole words
+        if lane_off:
+            out += [q.submit(bm.astype(np.int8), d, 8, 3) for d in data]
+            out += [q.submit_resident(bm.astype(np.int8), d, 8, 3)
+                    for d in data]
+            out += [q.submit_planar(
+                bm.astype(np.int8),
+                port_gf2.unpack_bits_bytes(torch.from_numpy(d).to(card), 8),
+                8, 3) for d in data]
+        else:
+            out += [q.submit_packedbit(bm.astype(np.uint8), d, 8, 3)
+                    for d in data]
+            out += [q.submit_packedbit_resident(bm.astype(np.uint8), d, 8, 3)
+                    for d in aligned]
+            out += [q.submit_packedbit_planes(
+                bm.astype(np.uint8),
+                port_gf2.to_packedbit(torch.from_numpy(d).to(card)), 8, 3)
+                for d in aligned]
+        q.flush()
+        return [f.result(timeout=60) for f in out]
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    for lane_off in (False, True):
+        monkeypatch.setenv("CEPH_TPU_PACKEDBIT", "0" if lane_off else "1")
+        mesh = MeshDispatcher(devices)
+        on_mesh = BatchingQueue(device=card, max_delay=60.0, mesh=mesh)
+        single = BatchingQueue(device=card, max_delay=60.0, mesh=False)
+        try:
+            kernels = ((cuda_gf2.apply_bytes_w8, cuda_gf2.gf2_matmul)
+                       if lane_off else (cuda_packedbit.apply_packedbit,
+                                         cuda_packedbit.xor_schedule))
+            before = [fn.launches for fn in kernels]
+            got = drive(on_mesh, lane_off)
+            torch.cuda.synchronize()
+            launched = [fn.launches - b for fn, b in zip(kernels, before)]
+            want = drive(single, lane_off)
+        finally:
+            on_mesh.close()
+            single.close()
+        assert on_mesh.mesh is mesh and single.mesh is None
+        assert on_mesh.sharded_dispatches == on_mesh.dispatches == 3
+        assert mesh.shard_puts == 3
+        # lane off: K1 for packed, K2 for resident and planar; lane on: K4
+        # for packedbit and packedbit_resident, K3 for packedbit_planes
+        assert launched == ([len(devices), 2 * len(devices)] if lane_off
+                            else [2 * len(devices), len(devices)])
+        for g, c in zip(got, want):
+            g = g if isinstance(g, tuple) else (g,)
+            c = c if isinstance(c, tuple) else (c,)
+            for a, b in zip(g, c):
+                if isinstance(a, torch.Tensor):
+                    assert a.device == on_mesh.device == devices[0]
+                assert np.array_equal(host(a), host(b))
+
+
 def test_device_arm_store_on_the_card_matches_the_host_arm(card):
     """The paged store's device arm on CUDA sub-slabs against its host arm
     and against the device arm on CPU tensors: reads, partial gathers,

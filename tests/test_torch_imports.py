@@ -29,6 +29,7 @@ import ceph_tpu_torch.native.bridge
 import ceph_tpu_torch.ops.cuda_gf2
 import ceph_tpu_torch.ops.cuda_packedbit
 import ceph_tpu_torch.ops.slab
+import ceph_tpu_torch.parallel.mesh
 import ceph_tpu_torch.parallel.service
 import ceph_tpu_torch.rados.bluestore
 import ceph_tpu_torch.rados.client
@@ -72,6 +73,7 @@ import ceph_tpu_torch.tools.traffic
 import ceph_tpu_torch.tools.wire_corpus
 import ceph_tpu_torch.utils.checksum
 import ceph_tpu_torch.utils.wirepath
+ceph_tpu_torch.utils.wirepath.kind()  # builds and probes the native arm
 from ceph_tpu_torch.ec.registry import registry
 registry.factory("jerasure", "", {"plugin": "jerasure", "k": "2", "m": "1"})
 for plugin in ("isa", "shec", "clay", "xor"):

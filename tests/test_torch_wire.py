@@ -19,6 +19,7 @@ import pytest
 from ceph_tpu.rados.ecutil import HashInfo as RefHashInfo
 from ceph_tpu.tools import wire_corpus
 from ceph_tpu.utils import checksum as ref_checksum
+from ceph_tpu.utils import wirepath as ref_wirepath
 from ceph_tpu_torch.rados import types  # registers the message set
 from ceph_tpu_torch.rados.ecutil import HashInfo
 from ceph_tpu_torch.rados.messenger import decode_message, encode_payload_parts
@@ -95,7 +96,8 @@ def test_reference_class_paths_unpickle_to_the_port():
 def test_checksum_kind_is_crc32c_on_both():
     assert checksum.checksum_kind() == "crc32c"
     assert ref_checksum.checksum_kind() == "crc32c"
-    assert wirepath.kind() == "python" and wirepath.impl() is None
+    assert wirepath.kind() == "native" and wirepath.impl() is not None
+    assert ref_wirepath.kind() == "native"
 
 
 def test_checksum_matches_reference():
