@@ -1,0 +1,7 @@
+"""kernel_roofline.decode: the decode ops' frozen byte count at the card's
+bandwidth over all kernel time in the trace, %."""
+from ecbench import readers
+
+
+def read(run):
+    return readers.kernel_roofline(run, "decode")
