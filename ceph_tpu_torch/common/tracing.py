@@ -20,16 +20,32 @@ Spans land in a bounded per-daemon ring dumped via the admin socket
 (``dump_traces``; ``dump_trace`` filters one trace_id) — the in-process
 stand-in for shipping to a collector.  ``tools/trace_export.py`` gathers
 the per-daemon rings and emits Jaeger-compatible JSON for a whole op.
+
+Code with no daemon context (the codec path: ec/base.py, ec/codecs.py,
+ec/plugins/cuda.py, ops/gf2.py) opens spans with the module-level
+``span(name)`` of the process tracer, ``PROCESS``.  It is off by default,
+and off a span is one flag read returning a shared no-op.  On, spans nest
+per thread; a root span opens a trace, and its children share its trace id.
+Ids are process-local integers.
+
+Every stamp is ``time.time_ns()`` (CLOCK_REALTIME), the clock that
+torch.profiler's chrome traces run on (``ts`` * 1000 +
+``baseTimeNanoseconds``), so spans can be laid on a device trace by their
+own stamps; that trace has been seen a millisecond off, so check the
+placement (a marker kernel launched after a stamp) where it matters.  Dumps
+keep the daemon spans' seconds.
+
+This module imports no torch: reactor workers import ``common/``.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import os
 import threading
-from typing import Any, Deque, Dict, List, Optional
-
 import time
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 
 def _new_id() -> str:
@@ -49,8 +65,8 @@ class Span:
         self.span_id = _new_id()
         self.parent_id = parent_id
         self.name = name
-        self.start = time.time()
-        self.end: Optional[float] = None
+        self.start = time.time_ns()
+        self.end: Optional[int] = None
         self.events: List[Dict[str, Any]] = []
         self.tags: Dict[str, Any] = {}
 
@@ -74,7 +90,7 @@ class Span:
 
     def finish(self) -> None:
         if self.end is None:
-            self.end = time.time()
+            self.end = time.time_ns()
             self.tracer._record(self)
 
     def __enter__(self) -> "Span":
@@ -86,8 +102,8 @@ class Span:
     def dump(self) -> Dict[str, Any]:
         return {"trace_id": self.trace_id, "span_id": self.span_id,
                 "parent_id": self.parent_id, "name": self.name,
-                "start": self.start,
-                "duration": (self.end or time.time()) - self.start,
+                "start": self.start / 1e9,
+                "duration": ((self.end or time.time_ns()) - self.start) / 1e9,
                 "events": list(self.events), "tags": dict(self.tags)}
 
 
@@ -147,3 +163,107 @@ class Tracer:
             lambda a: {"trace_id": a.get("trace_id", ""),
                        "spans": self.spans_for(a.get("trace_id", ""))},
             "spans of one trace (trace_id=<hex>)")
+
+
+# -- the process tracer: spans of code with no daemon context ----------------
+
+#: a finished process span: (name, start_ns, end_ns, span id, parent id or
+#: 0 for a root, trace id, thread ident)
+Record = Tuple[str, int, int, int, int, int, int]
+
+#: spans the process ring holds by default: a 51 s window of 4 MiB codec
+#: calls on a fast host records about 0.4 M
+CAPACITY = 1 << 20
+
+_on = False  # read by span() on every call: the off path's only cost
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _ProcessSpan:
+    __slots__ = ("name", "start", "span_id", "parent_id", "trace_id",
+                 "_outer")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> "_ProcessSpan":
+        tracer = PROCESS
+        outer = getattr(tracer._local, "current", None)
+        self._outer = outer
+        self.span_id = next(tracer._ids)
+        if outer is None:  # a root opens a trace
+            self.parent_id, self.trace_id = 0, self.span_id
+        else:
+            self.parent_id, self.trace_id = outer.span_id, outer.trace_id
+        tracer._local.current = self
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end = time.time_ns()
+        tracer = PROCESS
+        tracer._local.current = self._outer
+        next(tracer._recorded)
+        tracer._ring.append((self.name, self.start, end, self.span_id,
+                             self.parent_id, self.trace_id,
+                             threading.get_ident()))
+
+
+class ProcessTracer:
+    """The process-wide tracer behind ``span()``: finished spans as
+    ``Record`` tuples in a bounded ring, the oldest dropped (and counted)
+    when it is full."""
+
+    def __init__(self) -> None:
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        self._ring: Deque[Record] = collections.deque(maxlen=CAPACITY)
+        self._recorded = itertools.count()  # spans ended into this ring
+
+    def enable(self, capacity: int = CAPACITY) -> None:
+        """Start recording into an empty ring of `capacity` spans."""
+        global _on
+        self._ring = collections.deque(maxlen=capacity)
+        self._recorded = itertools.count()
+        _on = True
+
+    @property
+    def enabled(self) -> bool:
+        return _on
+
+    def disable(self) -> None:
+        """Stop opening spans; spans open now still record when they end."""
+        global _on
+        _on = False
+
+    def drain(self) -> Tuple[List[Record], int]:
+        """(the recorded spans in the order they ended, how many were
+        dropped since the ring was last emptied); empties the ring."""
+        ring, recorded = self._ring, next(self._recorded)
+        self._ring = collections.deque(maxlen=ring.maxlen)
+        self._recorded = itertools.count()
+        spans = list(ring)
+        return spans, max(0, recorded - len(spans))
+
+
+PROCESS = ProcessTracer()
+
+
+def span(name: str):
+    """A span of the process tracer around a block (``with
+    span("ec.encode"):``); off, the shared no-op."""
+    if not _on:
+        return _NO_SPAN
+    return _ProcessSpan(name)

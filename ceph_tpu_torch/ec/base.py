@@ -15,6 +15,7 @@ from typing import Dict, List, Mapping, Set
 
 import numpy as np
 
+from ceph_tpu_torch.common.tracing import span
 from ceph_tpu_torch.ec.interface import (
     ErasureCodeError,
     ErasureCodeInterface,
@@ -121,51 +122,54 @@ class ErasureCode(ErasureCodeInterface):
         """Zero-pad `data` to k*blocksize and carve into [k, blocksize]
         (reference encode_prepare: pad_len zero fill of the tail chunks)."""
         k = self.get_data_chunk_count()
-        buf = np.zeros(k * blocksize, dtype=np.uint8)
-        raw = np.frombuffer(data, dtype=np.uint8)
-        buf[: raw.size] = raw
-        return buf.reshape(k, blocksize)
+        with span("ec.encode_prepare"):
+            buf = np.zeros(k * blocksize, dtype=np.uint8)
+            raw = np.frombuffer(data, dtype=np.uint8)
+            buf[: raw.size] = raw
+            return buf.reshape(k, blocksize)
 
     def encode(self, want_to_encode: Set[int], data: bytes) -> Dict[int, np.ndarray]:
-        k, m = self.get_data_chunk_count(), self.get_coding_chunk_count()
-        bad = {c for c in want_to_encode if c >= k + m}
-        if bad:
-            raise ErasureCodeError(-errno.EINVAL, f"invalid chunk ids {bad}")
-        blocksize = self.get_chunk_size(len(data))
-        chunks = self.encode_prepare(data, blocksize)
-        coding = self.encode_chunks(chunks)
-        # chunk ids in the result are physical positions (chunk_index remap,
-        # identity for codecs without a 'mapping' profile)
-        out: Dict[int, np.ndarray] = {}
-        phys = {self.chunk_index(i): i for i in range(k + m)}
-        for c in want_to_encode:
-            logical = phys[c]
-            out[c] = chunks[logical] if logical < k else coding[logical - k]
-        return out
+        with span("ec.encode"):
+            k, m = self.get_data_chunk_count(), self.get_coding_chunk_count()
+            bad = {c for c in want_to_encode if c >= k + m}
+            if bad:
+                raise ErasureCodeError(-errno.EINVAL, f"invalid chunk ids {bad}")
+            blocksize = self.get_chunk_size(len(data))
+            chunks = self.encode_prepare(data, blocksize)
+            coding = self.encode_chunks(chunks)
+            # chunk ids in the result are physical positions (chunk_index remap,
+            # identity for codecs without a 'mapping' profile)
+            out: Dict[int, np.ndarray] = {}
+            phys = {self.chunk_index(i): i for i in range(k + m)}
+            for c in want_to_encode:
+                logical = phys[c]
+                out[c] = chunks[logical] if logical < k else coding[logical - k]
+            return out
 
     def decode(
         self, want_to_read: Set[int], chunks: Mapping[int, np.ndarray], chunk_size: int
     ) -> Dict[int, np.ndarray]:
-        for c, buf in chunks.items():
-            if len(buf) != chunk_size:
-                raise ErasureCodeError(
-                    -errno.EINVAL,
-                    f"chunk {c} has size {len(buf)} != {chunk_size}",
-                )
-        if want_to_read <= set(chunks):
-            return {c: np.asarray(chunks[c]) for c in want_to_read}
-        # ensure decodability before delegating
-        self.minimum_to_decode(set(want_to_read), set(chunks))
-        if not self.chunk_mapping or self.decode_chunks_id_space == "physical":
-            return self.decode_chunks(set(want_to_read), chunks)
-        # chunk ids at this boundary are physical; decode_chunks is logical
-        logical_of = {
-            self.chunk_index(i): i for i in range(self.get_chunk_count())
-        }
-        log_chunks = {logical_of[c]: buf for c, buf in chunks.items()}
-        log_want = {logical_of[c] for c in want_to_read}
-        decoded = self.decode_chunks(log_want, log_chunks)
-        return {self.chunk_index(c): buf for c, buf in decoded.items()}
+        with span("ec.decode"):
+            for c, buf in chunks.items():
+                if len(buf) != chunk_size:
+                    raise ErasureCodeError(
+                        -errno.EINVAL,
+                        f"chunk {c} has size {len(buf)} != {chunk_size}",
+                    )
+            if want_to_read <= set(chunks):
+                return {c: np.asarray(chunks[c]) for c in want_to_read}
+            # ensure decodability before delegating
+            self.minimum_to_decode(set(want_to_read), set(chunks))
+            if not self.chunk_mapping or self.decode_chunks_id_space == "physical":
+                return self.decode_chunks(set(want_to_read), chunks)
+            # chunk ids at this boundary are physical; decode_chunks is logical
+            logical_of = {
+                self.chunk_index(i): i for i in range(self.get_chunk_count())
+            }
+            log_chunks = {logical_of[c]: buf for c, buf in chunks.items()}
+            log_want = {logical_of[c] for c in want_to_read}
+            decoded = self.decode_chunks(log_want, log_chunks)
+            return {self.chunk_index(c): buf for c, buf in decoded.items()}
 
     # -- default create_rule -------------------------------------------------
 

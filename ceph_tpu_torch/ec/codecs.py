@@ -33,6 +33,7 @@ from typing import Dict, List, Mapping, Optional, Set, Tuple
 
 import numpy as np
 
+from ceph_tpu_torch.common.tracing import span
 from ceph_tpu_torch.ec.base import ErasureCode
 from ceph_tpu_torch.ec.gf import gf
 from ceph_tpu_torch.ec.interface import ErasureCodeError
@@ -155,10 +156,11 @@ class MatrixErasureCode(ErasureCode):
         """(chosen, inverted_matrix) for reconstructing from `available`
         — THE selection rule, shared by decode_chunks and the batching
         queue's decode path so they can never diverge."""
-        plan = self.minimum_to_decode(
-            set(range(self.k)) | set(want_to_read), available)
-        chosen = tuple(sorted(plan))[: self.k]
-        return chosen, self._decode_matrix(chosen)
+        with span("ec.decode_select"):
+            plan = self.minimum_to_decode(
+                set(range(self.k)) | set(want_to_read), available)
+            chosen = tuple(sorted(plan))[: self.k]
+            return chosen, self._decode_matrix(chosen)
 
     def decode_chunks(
         self, want_to_read: Set[int], chunks: Mapping[int, np.ndarray]
@@ -178,8 +180,9 @@ class MatrixErasureCode(ErasureCode):
             c for c in range(self.k) if c not in chunks
             and (need_coding or c in want_to_read))
         if missing_data:
-            src = np.stack([np.asarray(chunks[c], dtype=np.uint8)
-                            for c in chosen])
+            with span("ec.stack_survivors"):
+                src = np.stack([np.asarray(chunks[c], dtype=np.uint8)
+                                for c in chosen])
             rebuilt = self._apply(inv[missing_data], src)
             for i, c in enumerate(missing_data):
                 out[c] = rebuilt[i]
@@ -242,21 +245,23 @@ class BitmatrixErasureCode(ErasureCode):
                 -errno.EINVAL, f"chunk size {chunk} not a multiple of w*packetsize={wp}"
             )
         nb = chunk // wp
-        return (
-            data.reshape(n, nb, self.w, self.packetsize)
-            .transpose(0, 2, 1, 3)
-            .reshape(n * self.w, nb, self.packetsize)
-        )
+        with span("ec.to_rows"):
+            return (
+                data.reshape(n, nb, self.w, self.packetsize)
+                .transpose(0, 2, 1, 3)
+                .reshape(n * self.w, nb, self.packetsize)
+            )
 
     def _from_rows(self, rows: np.ndarray) -> np.ndarray:
         nw = rows.shape[0]
         n = nw // self.w
         nb = rows.shape[1]
-        return (
-            rows.reshape(n, self.w, nb, self.packetsize)
-            .transpose(0, 2, 1, 3)
-            .reshape(n, nb * self.w * self.packetsize)
-        )
+        with span("ec.from_rows"):
+            return (
+                rows.reshape(n, self.w, nb, self.packetsize)
+                .transpose(0, 2, 1, 3)
+                .reshape(n, nb * self.w * self.packetsize)
+            )
 
     def _apply_rows(self, bm: np.ndarray, rows: np.ndarray) -> np.ndarray:
         """Apply a GF(2) bit-matrix to packet rows — the compute seam the
@@ -289,12 +294,16 @@ class BitmatrixErasureCode(ErasureCode):
         self, want_to_read: Set[int], chunks: Mapping[int, np.ndarray]
     ) -> Dict[int, np.ndarray]:
         available = set(chunks)
-        plan = self.minimum_to_decode(set(range(self.k)) | set(want_to_read), available)
-        chosen = tuple(sorted(plan))[: self.k]
-        src_rows = np.concatenate(
-            [self._to_rows(np.asarray(chunks[c], dtype=np.uint8)[None, :]) for c in chosen]
-        )
-        inv = self._decode_bitmatrix(chosen)
+        with span("ec.decode_select"):
+            plan = self.minimum_to_decode(
+                set(range(self.k)) | set(want_to_read), available)
+            chosen = tuple(sorted(plan))[: self.k]
+            inv = self._decode_bitmatrix(chosen)
+        with span("ec.stack_survivors"):
+            src_rows = np.concatenate(
+                [self._to_rows(np.asarray(chunks[c], dtype=np.uint8)[None, :])
+                 for c in chosen]
+            )
         data_rows = self._apply_rows(inv, src_rows)
         out: Dict[int, np.ndarray] = {}
         need_coding = [c for c in want_to_read if c >= self.k]

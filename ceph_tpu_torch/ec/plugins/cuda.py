@@ -29,13 +29,15 @@ device, so a result always comes from the device the codec was built for.
 from __future__ import annotations
 
 import errno
-from typing import Callable, Dict, Tuple
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
 from ceph_tpu_torch import PLUGIN_ABI_VERSION
 from ceph_tpu_torch.common.perf_counters import PerfCountersBuilder
+from ceph_tpu_torch.common.tracing import span
 from ceph_tpu_torch.ec.interface import ErasureCodeError, ErasureCodeProfile
 from ceph_tpu_torch.ec.matrices import matrix_to_bitmatrix
 from ceph_tpu_torch.ec.plugins.jerasure import (
@@ -58,6 +60,16 @@ from ceph_tpu_torch.utils.cudadev import DeviceLike, resolve_device
 #   apply / apply_rows        u64         CUDA dispatches per seam
 #   apply_s / apply_rows_s    longrunavg  seconds per CUDA dispatch,
 #                                         host->device and back included
+#   h2d_s                     longrunavg  seconds a dispatch hands its input
+#                                         to the card: contiguous host copy,
+#                                         from_numpy, .to(device)
+#   launch_s                  longrunavg  seconds in the lane's call: the
+#                                         schedule LRU lookup or bit-matrix,
+#                                         the kernel enqueue
+#   d2h_s                     longrunavg  seconds in out.cpu().numpy(): the
+#                                         wait for the kernel, the copy back
+#   (h2d_s, launch_s and d2h_s time steps inside apply_s / apply_rows_s, so
+#   their sums stay at or under the seam's)
 #   cpu_fallback              u64         seam calls served on the CPU by a
 #                                         codec built with device="cpu"
 #   device_failed             u64         dispatch errors, each raised to the
@@ -68,6 +80,9 @@ PLUGIN_PERF = (
     .add_u64_counter("apply_rows", "packet-layout seam device dispatches")
     .add_time_avg("apply_s", "byte-layout seam device seconds")
     .add_time_avg("apply_rows_s", "packet-layout seam device seconds")
+    .add_time_avg("h2d_s", "seam seconds handing the input to the card")
+    .add_time_avg("launch_s", "seam seconds in the lane call (enqueue)")
+    .add_time_avg("d2h_s", "seam seconds waiting for and copying back")
     .add_u64_counter("cpu_fallback",
                      "seam calls served on the CPU (codec built for it)")
     .add_u64_counter("device_failed",
@@ -99,19 +114,31 @@ class _CudaDispatch:
 
     def _dispatch(self, seam: str, run: Callable[[], np.ndarray]) -> np.ndarray:
         try:
-            if self.device.type == "cpu":
-                out = run()
-                PLUGIN_PERF.inc("cpu_fallback")
+            with span("ec_plugin." + seam):
+                if self.device.type == "cpu":
+                    out = run()
+                    PLUGIN_PERF.inc("cpu_fallback")
+                    return out
+                with PLUGIN_PERF.time_avg(f"{seam}_s"):
+                    out = run()
+                PLUGIN_PERF.inc(seam)
                 return out
-            with PLUGIN_PERF.time_avg(f"{seam}_s"):
-                out = run()
-            PLUGIN_PERF.inc(seam)
-            return out
         except Exception as e:
             PLUGIN_PERF.inc("device_failed")
             raise ErasureCodeError(
                 -errno.EIO, f"{self.plugin_name} {seam} on {self.device} "
                 f"failed: {type(e).__name__}: {e}") from e
+
+    @contextmanager
+    def _step(self, step: str) -> Iterator[None]:
+        """One step of a dispatch (h2d, launch, d2h): its span, and on the
+        card its seconds into the step's ec_plugin average."""
+        with span("ec_plugin." + step):
+            if self.device.type == "cpu":
+                yield
+                return
+            with PLUGIN_PERF.time_avg(step + "_s"):
+                yield
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(np.ascontiguousarray(array, dtype=np.uint8))
@@ -120,13 +147,17 @@ class _CudaDispatch:
     # seam override: GF(2^w) matrix applied to symbol regions
     def _apply(self, matrix: np.ndarray, regions: np.ndarray) -> np.ndarray:
         def run() -> np.ndarray:
-            data = self._to_device(regions)
-            if packedbit_enabled() and self.w == 8:
-                out = gf2_apply_packedbit(self._bitmatrix(matrix, False), data)
-            else:
-                out = gf2_apply_bytes(self._bitmatrix(matrix, True), data,
-                                      self.w, matrix.shape[0])
-            return out.cpu().numpy()
+            with self._step("h2d"):
+                data = self._to_device(regions)
+            with self._step("launch"):
+                if packedbit_enabled() and self.w == 8:
+                    out = gf2_apply_packedbit(self._bitmatrix(matrix, False),
+                                              data)
+                else:
+                    out = gf2_apply_bytes(self._bitmatrix(matrix, True), data,
+                                          self.w, matrix.shape[0])
+            with self._step("d2h"):
+                return out.cpu().numpy()
 
         return self._dispatch("apply", run)
 
@@ -138,16 +169,24 @@ class _CudaDispatch:
             if packedbit_enabled():
                 # a packet-row combine is a GF(2) XOR of whole rows: the
                 # schedule runs on the packet bytes, with no bit expansion
-                flat = self._to_device(rows.reshape(R, nb * p))
-                out = gf2_xor_packed(np.asarray(bm, dtype=np.uint8), flat)
-                return out.cpu().numpy().reshape(bm.shape[0], nb, p)
+                with self._step("h2d"):
+                    flat = self._to_device(rows.reshape(R, nb * p))
+                with self._step("launch"):
+                    out = gf2_xor_packed(np.asarray(bm, dtype=np.uint8), flat)
+                with self._step("d2h"):
+                    return out.cpu().numpy().reshape(bm.shape[0], nb, p)
             n, out_n = R // w, bm.shape[0] // w
-            mbits = self._bitmatrix(bm, True, expand=False)
-            chunks = (self._to_device(rows).reshape(n, w, nb, p)
-                      .permute(0, 2, 1, 3).reshape(n, nb * w * p))
-            out = gf2_apply_packets(mbits, chunks, w, p, out_n)
-            return (out.reshape(out_n, nb, w, p).permute(0, 2, 1, 3)
-                    .reshape(out_n * w, nb, p).cpu().numpy())
+            with self._step("h2d"):
+                data = self._to_device(rows)
+            with self._step("launch"):
+                mbits = self._bitmatrix(bm, True, expand=False)
+                chunks = (data.reshape(n, w, nb, p)
+                          .permute(0, 2, 1, 3).reshape(n, nb * w * p))
+                out = (gf2_apply_packets(mbits, chunks, w, p, out_n)
+                       .reshape(out_n, nb, w, p).permute(0, 2, 1, 3)
+                       .reshape(out_n * w, nb, p))
+            with self._step("d2h"):
+                return out.cpu().numpy()
 
         return self._dispatch("apply_rows", run)
 

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.common.perf_counters import PerfCountersBuilder
+from ceph_tpu_torch.common.tracing import span
 from ceph_tpu_torch.ops import cuda_gf2, cuda_packedbit
 from ceph_tpu_torch.utils.cudadev import DeviceLike, resolve_device
 
@@ -318,7 +319,7 @@ def _compiled_schedule(tag: str, bitmatrix, cse=None) -> cuda_packedbit.Program:
     key = (tag, bm.shape, bm.tobytes(), cse)
     prog = _sched_cache_get(key)
     if prog is None:
-        with SCHED_PERF.time_avg("compile_s"):
+        with span("gf2.sched_compile"), SCHED_PERF.time_avg("compile_s"):
             ops, outs, n_xors = xor_schedule_program(bm, cse=cse)
             prog = cuda_packedbit.Program(ops, outs, bm.shape[1])
         SCHED_PERF.inc("compile")
