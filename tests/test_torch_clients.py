@@ -435,9 +435,16 @@ async def neo_meta_replication_retries_after_transport_failure(r):
         primary.messenger.send = real_send
     assert not primary._meta_repl_pending and fail["n"] == 0
     key = (pool_id, "robj", 0)
-    held = [(r.cluster.osds[p].store.omap_get(key).get("idx"),
-             r.cluster.osds[p].store.getattr(key, "who")) for p in peers]
-    assert held == [(b"entry", b"x")] * len(peers)
+    want = [(b"entry", b"x")] * len(peers)
+    # the queue empties once the last send returns; each peer applies the
+    # message when its own dispatch runs, so wait for that too
+    for _ in range(600):
+        held = [(r.cluster.osds[p].store.omap_get(key).get("idx"),
+                 r.cluster.osds[p].store.getattr(key, "who")) for p in peers]
+        if held == want:
+            break
+        await asyncio.sleep(0.05)
+    assert held == want
     return fail["n"], held
 
 

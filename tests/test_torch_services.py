@@ -2346,8 +2346,12 @@ async def mdsc_moving_a_subtree_root_itself_is_exdev(r):
     return out
 
 
-@case
+@serial
 async def mdsc_cluster_level_dir_rename_revokes_caps(r):
+    """The holder complies, flushing /d/f inside the 1 s revoke deadline
+    (alone, so the concurrent cases' RADOS traffic is not what outlasts
+    it; a holder that does outlast it is evicted, as the next case
+    shows)."""
     mc = await mds_cluster(r, n_ranks=1, revoke_timeout=1.0)
     b = r.pkg.mdsc.CephFSMultiClient(mc, "b", renew_interval=0.01)
     await b.mkdir("/d")
@@ -2362,6 +2366,40 @@ async def mdsc_cluster_level_dir_rename_revokes_caps(r):
     out = [await mc.ranks[0].fs.read_file("/m/f"),
            any(p.startswith("/d") for p in mc.ranks[0]._caps)]
     assert out == [b"held", False]
+    await b.unmount()
+    return out
+
+
+@case
+async def mdsc_holder_flushing_past_revoke_deadline_is_evicted(r):
+    """The revoke deadline counts until the cap is released, not until the
+    holder starts to comply (the reference's cap-revoke eviction): a
+    holder whose flush is still in flight at the deadline loses its caps,
+    the rename goes ahead, and the late flush finds its parent gone."""
+    mc = await mds_cluster(r, n_ranks=1, revoke_timeout=0.2)
+    b = r.pkg.mdsc.CephFSMultiClient(mc, "b", renew_interval=0.01)
+    await b.mkdir("/d")
+    await b.write("/d/f", b"held")
+    fs = mc.ranks[0].fs
+    gate, real_write = asyncio.Event(), fs.striper.write
+
+    async def held_write(*args, **kw):
+        await gate.wait()
+        return await real_write(*args, **kw)
+
+    fs.striper.write = held_write
+    rename = asyncio.create_task(mc.rename("/d", "/m"))
+    session = b._clients[0].session
+    while "/d/f" not in session.revoked:
+        await asyncio.sleep(0.01)
+    flush = asyncio.create_task(b.renew_all())
+    await rename
+    gate.set()
+    out = [await raises(r.pkg.mds.FsError, flush, match="ENOENT"),
+           any(p.startswith("/d") for p in mc.ranks[0]._caps),
+           await raises(r.pkg.mds.FsError, fs.read_file("/m/f"),
+                        match="ENOENT")]
+    assert out == [("FsError", None), False, ("FsError", None)]
     await b.unmount()
     return out
 
